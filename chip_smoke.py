@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path once on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints a flushed ``[chip_smoke]`` marker; any failure raises
+and exits non-zero):
+
+1. device and set-up: require CUDA, disable TF32, print the card's name and
+   power limit, build the CUDA kernels from ``vyomai_tpu_torch/csrc``;
+2. K4 paged decode against its plain version at the serving shapes;
+3. K1 flash forward against its plain version at the prefill shapes;
+4. end-to-end serving at Qwen3-0.6B width (``QwenConfig()``, random bf16
+   weights from a seeded generator): 24 requests in two waves, the second
+   hitting the radix prefix cache; every kernel's launch count is zeroed
+   just before and read just after;
+5. end-to-end numerics: the same width at 2 layers and fp32, one 520-token
+   prompt, prefill + 8 teacher-forced decode steps on the card against the
+   same functions on the CPU.
+
+The line before the last holds the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def phase(msg: str):
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def cuda_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` in ms (CUDA events), with the L2 cache
+    flushed before each timed launch."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bf16_atol(ref) -> float:
+    """Both versions read the same bf16 inputs and reduce in fp32, so input
+    rounding is shared: they differ by fp32 summation order (1e-4) plus at
+    most one bf16 ulp of the output after the final cast, 2^-7 of its
+    largest magnitude."""
+    return 2.0 ** -7 * float(ref.float().abs().max()) + 1e-4
+
+
+FP32_ATOL = 1e-4   # fp32 kernels vs plain fp32 (summation order only)
+
+
+def phase_decode(torch, paged_decode, ref_fn, flush, card):
+    """K4 at B=16, H=16, H_kv=8, BS=16, MAXB=64."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, h, h_kv, bs, maxb = 16, 16, 8, 16, 64
+    nb = b * maxb
+    main = None
+    for d, dtype in ((128, torch.bfloat16), (128, torch.float32),
+                     (64, torch.bfloat16)):
+        q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
+        pool = torch.randn(nb, 2, bs, h_kv * d, device=dev,
+                           generator=g).to(dtype)
+        bt = torch.randperm(nb, device=dev, generator=g).reshape(
+            b, maxb).int()
+        lens = [1, 16, 17, 100, 255, 256, 300, 511, 512, 513, 700, 999,
+                1023, 1024, 0, 1500]    # partial blocks, a dead lane,
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)  # oversized
+        bt[3, 7:] = -1                  # unused entries past the live ones
+        out = paged_decode(q, pool, bt, sl, h_kv)
+        torch.cuda.synchronize()
+        ref = ref_fn(q, pool, bt, sl, h_kv)
+        err = float((out.float() - ref.float()).abs().max())
+        atol = FP32_ATOL if dtype == torch.float32 else bf16_atol(ref)
+        check(err <= atol, f"K4 D={d} {dtype}: max err {err} > {atol}")
+        check(bool(torch.all(out[14] == 0)), "K4 dead lane is not 0")
+        ms = cuda_ms(lambda: paged_decode(q, pool, bt, sl, h_kv), flush)
+        plain_ms = cuda_ms(lambda: ref_fn(q, pool, bt, sl, h_kv), flush)
+        phase(f"K4 paged_decode D={d} {str(dtype)[6:]}: max_abs_err={err} "
+              f"(atol {atol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"[{card}]")
+        if main is None:
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return main
+
+
+def _engine_bias(torch, n, tp, tctx, dev, g):
+    """The serving prefill's causal-with-offset mask [N, 1, Tp, Tctx]."""
+    cached = torch.randint(0, tctx - tp, (n,), device=dev, generator=g)
+    t = torch.randint(1, tp + 1, (n,), device=dev, generator=g)
+    t[0] = tp
+    ar = torch.arange(tp, device=dev)
+    pos = torch.minimum(cached[:, None] + ar, (cached + t - 1)[:, None])
+    k_pos = torch.arange(tctx, device=dev)[None, None, :]
+    ok = (k_pos <= pos[:, :, None]) & (k_pos < (cached + t)[:, None, None])
+    return torch.where(ok, 0.0, float(torch.finfo(torch.float32).min)
+                       ).float()[:, None]
+
+
+def phase_flash(torch, flash_fwd, ref_fn, flush, card):
+    """K1 at N=4, H=16, H_kv=8, Tctx=1024 with the engine's bias."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    main = None
+    cases = [  # (label, n, h, h_kv, lq, lk, d, dtype, bias?, causal)
+        ("Tp=512 engine bias", 4, 16, 8, 512, 1024, 128, torch.bfloat16,
+         True, False),
+        ("Tp=32 engine bias", 4, 16, 8, 32, 1024, 128, torch.bfloat16,
+         True, False),
+        ("Tp=512 engine bias", 4, 16, 8, 512, 1024, 128, torch.float32,
+         True, False),
+        ("ragged Lq=37 Lk=1000", 4, 16, 8, 37, 1000, 128, torch.bfloat16,
+         True, False),
+        ("causal flag", 4, 16, 8, 512, 1024, 128, torch.bfloat16, False,
+         True),
+        ("D=64 causal", 4, 16, 8, 300, 300, 64, torch.float32, False, True),
+    ]
+    for label, n, h, h_kv, lq, lk, d, dtype, with_bias, causal in cases:
+        q = torch.randn(n, h, lq, d, device=dev, generator=g).to(dtype)
+        k = torch.randn(n, h_kv, lk, d, device=dev, generator=g).to(dtype)
+        v = torch.randn(n, h_kv, lk, d, device=dev, generator=g).to(dtype)
+        bias = None
+        if with_bias and lq <= lk - 64:
+            bias = _engine_bias(torch, n, lq, lk, dev, g)
+        elif with_bias:
+            bias = torch.randn(n, 1, lq, lk, device=dev, generator=g)
+        out, lse = flash_fwd(q, k, v, bias, causal=causal)
+        torch.cuda.synchronize()
+        ref, ref_lse = ref_fn(q, k, v, bias, causal=causal)
+        err = float((out.float() - ref.float()).abs().max())
+        lse_err = float((lse - ref_lse).abs().max())
+        atol = FP32_ATOL if dtype == torch.float32 else bf16_atol(ref)
+        check(err <= atol, f"K1 {label} {dtype}: max err {err} > {atol}")
+        check(lse_err <= 1e-3, f"K1 {label}: lse err {lse_err}")
+        ms = cuda_ms(lambda: flash_fwd(q, k, v, bias, causal=causal), flush,
+                     iters=10)
+        plain_ms = cuda_ms(lambda: ref_fn(q, k, v, bias, causal=causal),
+                           flush, iters=10)
+        phase(f"K1 flash_fwd {label} D={d} {str(dtype)[6:]}: "
+              f"max_abs_err={err} lse_err={lse_err} (atol {atol}) "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+        if main is None:
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return main
+
+
+def phase_serving(torch, np, tt, kernels, card):
+    """24 requests at Qwen3-0.6B width through the engine."""
+    dev = torch.device("cuda")
+    cfg = tt.QwenConfig()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = tt.ModelForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(gen)
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = tt.ContinuousBatchEngine(
+        model, num_blocks=1024, block_size=16, max_batch=16,
+        max_blocks_per_seq=64, max_new_tokens=64, eos_token_id=-1,
+        decode_horizon=8, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    phase(f"engine ready: {n_params} params, pool "
+          f"{eng.pool.numel() * eng.pool.element_size()} bytes "
+          f"({time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(0)
+    wave1 = [rng.integers(0, cfg.vocab_size, rng.integers(300, 501)).tolist()
+             for _ in range(16)]
+    wave2 = [wave1[i][:256] + rng.integers(
+        0, cfg.vocab_size, rng.integers(20, 61)).tolist() for i in range(8)]
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = {}
+    for wave in (wave1, wave2):
+        ids = [eng.submit(p) for p in wave]
+        done = eng.run()
+        outs.update({i: done[i] for i in ids})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    m = eng.metrics()
+    check(len(outs) == 24, f"{len(outs)} of 24 requests returned")
+    check(all(len(t) == 64 for t in outs.values()), "a request != 64 tokens")
+    check(all(0 <= x < cfg.vocab_size for t in outs.values() for x in t),
+          "token outside the vocab")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel never ran on the main path: {launches}")
+    check(m["cached_prompt_tokens"] > 0, "wave 2 never hit the prefix cache")
+    tokens = sum(len(t) for t in outs.values())
+    phase(f"serving Qwen3-0.6B width bf16: {tokens} tokens in {wall:.3f} s "
+          f"= {tokens / wall:.1f} tok/s, mean TTFT {m['ttft_mean_s']:.4f} s, "
+          f"prefix hits {m['radix_hits']} ({m['cached_prompt_tokens']} "
+          f"cached prompt tokens), prefill calls {m['prefill_calls']}, "
+          f"decode ticks {m['decode_ticks']}, launches {launches} [{card}]")
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_numerics(torch, np, tt, pm):
+    """2 layers, fp32: card vs CPU on a 520-token prompt, 8 decode steps
+    teacher-forced along the CPU's greedy tokens."""
+    cfg = tt.QwenConfig(num_hidden_layers=2)
+    cpu = tt.ModelForCausalLM(cfg, dtype=torch.float32)
+    cpu.init(torch.Generator().manual_seed(3)).requires_grad_(False)
+    gpu = tt.ModelForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.requires_grad_(False)
+    rng = np.random.default_rng(5)
+    t, bs, maxb = 520, 16, 64
+    prompt = rng.integers(0, cfg.vocab_size, t)
+    table = np.arange(maxb, dtype=np.int32)[None]
+    pos = np.arange(t)
+    pre = [prompt[None], pos[None], (table[0][pos // bs])[None],
+           (pos % bs)[None], table, np.array([t]), np.array([t])]
+    logits = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        pool = pm.init_pool(cfg, maxb, bs, dtype=torch.float32, device=dev)
+        arrays = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in pre]
+        arrays[2] = arrays[2].int()
+        arrays[4] = arrays[4].int()
+        steps = [pm.prefill(model, pool, *arrays)]
+        for i in range(8):
+            p = t + i
+            tok = (int(steps[-1].argmax(-1)[0]) if dev == "cpu"
+                   else cpu_tokens[i])
+            args = [np.array([tok]), np.array([p]), table,
+                    np.array([p + 1], np.int32),
+                    np.array([table[0, p // bs]], np.int32),
+                    np.array([p % bs])]
+            steps.append(pm.decode(model, pool, *[
+                torch.from_numpy(a).to(dev) for a in args]))
+        logits[dev] = [s.float().cpu() for s in steps]
+        if dev == "cpu":
+            cpu_tokens = [int(s.argmax(-1)[0]) for s in steps[:-1]]
+    errs = [float((a - b).abs().max())
+            for a, b in zip(logits["cpu"], logits["cuda"])]
+    tol = 2e-3
+    check(max(errs) <= tol, f"card vs CPU logits: max err {max(errs)}")
+    phase(f"numerics 2L fp32 prefill(520)+8 decode: per-step max |dlogit| "
+          f"{errs} (tol {tol}; fp32 reduction order of cuBLAS and the "
+          f"kernels vs the CPU)")
+
+
+def main():
+    check((ROOT / "vyomai_tpu_torch" / "csrc").is_dir(),
+          "run from a checkout: vyomai_tpu_torch/ not found beside this "
+          "script")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    phase("1/5 device and set-up")
+    check(torch.cuda.is_available(), "no CUDA device: this script runs the "
+          "port on an NVIDIA card and does not fall back to the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    card = smi
+    phase(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    import vyomai_tpu_torch as tt
+    from vyomai_tpu_torch.ops import _build
+    from vyomai_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_ref)
+    from vyomai_tpu_torch.ops.paged_decode import (
+        paged_attention_decode_ref, paged_decode)
+    from vyomai_tpu_torch.serving import paged_model as pm
+    t0 = time.perf_counter()
+    _build.library()
+    phase(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_build.build_seconds} s)")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    phase("2/5 K4 paged decode vs plain")
+    k4 = phase_decode(torch, paged_decode, paged_attention_decode_ref,
+                      flush, card)
+    phase("3/5 K1 flash forward vs plain")
+    k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
+                     flush, card)
+    del flush
+    phase("4/5 end-to-end serving")
+    launches = phase_serving(torch, np, tt,
+                             (paged_decode, flash_attention_fwd), card)
+    phase("5/5 end-to-end numerics")
+    phase_numerics(torch, np, tt, pm)
+
+    record = {"kernels": [
+        {"name": "paged_decode", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
+         "launches": launches["paged_decode"], **k4},
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "vyomai_tpu/ops/flash_attention.py:157",
+         "launches": launches["flash_attention_fwd"], **k1},
+    ]}
+    print(json.dumps(record), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,120 @@
+"""The PyTorch port's package hygiene, config and JAX weight bridge."""
+
+import os
+import subprocess
+import sys
+from dataclasses import fields
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vyomai_tpu as vt
+import vyomai_tpu_torch as tt
+from vyomai_tpu_torch.interop import params_from_jax
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+QCFG = vt.QwenConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=2, head_dim=32,
+                     max_position_embeddings=256, qk_norm=True,
+                     eos_token_id=9999, tie_word_embeddings=True)
+
+
+def test_import_never_loads_jax(tmp_path):
+    """``import vyomai_tpu_torch`` (engine, kv manager, kernels' wrappers
+    included) from a neutral directory leaves jax unimported."""
+    code = ("import sys, vyomai_tpu_torch, vyomai_tpu_torch.interop, "
+            "vyomai_tpu_torch.serving.paged_model, "
+            "vyomai_tpu_torch.ops.flash_attention, "
+            "vyomai_tpu_torch.ops.paged_decode; "
+            "print('jax' in sys.modules, 'vyomai_tpu' in sys.modules)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    done = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert done.returncode == 0, done.stderr
+    assert done.stdout.split() == ["False", "False"]
+
+
+def test_package_sources_never_import_jax():
+    pkg = ROOT / "vyomai_tpu_torch"
+    for path in pkg.rglob("*.py"):
+        if "csrc" in path.relative_to(pkg).parts:   # build outputs
+            continue
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+
+
+def test_config_defaults_match_jax():
+    ours, theirs = tt.QwenConfig(), vt.QwenConfig()
+    assert [f.name for f in fields(ours)] == [f.name for f in fields(theirs)]
+    for f in fields(theirs):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+
+
+@pytest.mark.parametrize("option", [
+    dict(rope_scaling={"rope_type": "linear", "factor": 2.0}),
+    dict(sliding_window=64), dict(num_experts=4), dict(attention_bias=True)])
+def test_config_rejects_unported_options(option):
+    with pytest.raises(NotImplementedError):
+        tt.QwenConfig(**option)
+
+
+@pytest.mark.parametrize("tie", [True, False])
+def test_bridge_round_trip(tie):
+    cfg = QCFG.replace(tie_word_embeddings=tie)
+    tcfg = tt.QwenConfig(**{f.name: getattr(cfg, f.name)
+                            for f in fields(cfg)})
+    params = vt.ModelForCausalLM(cfg).init(jax.random.PRNGKey(0),
+                                           dtype=jnp.float32)
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model = params_from_jax(tree, tcfg)
+    assert model.dtype == torch.float32 and len(model.layers) == 2
+    assert (model.lm_head is None) == tie
+    lp = tree["layers"]
+    for i, layer in enumerate(model.layers):
+        att = layer.self_attn
+        assert tuple(att.q_proj.weight.shape) == (4 * 32, 64)
+        assert tuple(att.k_proj.weight.shape) == (2 * 32, 64)
+        assert tuple(att.o_proj.weight.shape) == (64, 4 * 32)
+        assert tuple(layer.mlp.down_proj.weight.shape) == (64, 128)
+        np.testing.assert_array_equal(
+            att.q_proj.weight.detach().numpy(), lp["self_attn"]["q_proj"]["kernel"][i].T)
+        np.testing.assert_array_equal(
+            layer.mlp.gate_proj.weight.detach().numpy(),
+            lp["mlp"]["gate_proj"]["kernel"][i].T)
+        np.testing.assert_array_equal(
+            att.k_norm.weight.detach().numpy(), lp["self_attn"]["k_norm"]["weight"][i])
+        np.testing.assert_array_equal(
+            layer.post_attention_layernorm.weight.detach().numpy(),
+            lp["post_attention_layernorm"]["weight"][i])
+    np.testing.assert_array_equal(model.embed_tokens.weight.detach().numpy(),
+                                  tree["embed_tokens"]["weight"])
+    if not tie:
+        np.testing.assert_array_equal(model.lm_head.weight.detach().numpy(),
+                                      tree["lm_head"]["kernel"].T)
+    n_jax = sum(x.size for x in jax.tree_util.tree_leaves(tree))
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+
+
+def test_init_uses_only_its_generator():
+    """Random init reads the given generator, never the global RNG."""
+    cfg = tt.QwenConfig(vocab_size=64, hidden_size=32, intermediate_size=64,
+                        num_hidden_layers=1, num_attention_heads=2,
+                        num_key_value_heads=1, head_dim=16,
+                        max_position_embeddings=32)
+    state = torch.get_rng_state()
+    a = tt.ModelForCausalLM(cfg).init(torch.Generator().manual_seed(5))
+    b = tt.ModelForCausalLM(cfg).init(torch.Generator().manual_seed(5))
+    assert torch.equal(torch.get_rng_state(), state)
+    for pa, pb in zip(a.parameters(), b.parameters()):
+        assert torch.equal(pa, pb)
+    w = a.layers[0].self_attn.q_proj.weight
+    assert abs(float(w.detach().std()) - 0.02) < 0.005
+    assert torch.all(a.layers[0].input_layernorm.weight == 1)

@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA kernels.
+
+All ``vyomai_tpu_torch/csrc/*.cu`` sources compile with ``nvcc`` for
+``sm_90a`` into ONE shared library with a plain C interface, loaded with
+``ctypes``. The build runs at first use, into
+``vyomai_tpu_torch/csrc/build/<hash>/``, keyed by a hash of the sources and
+flags, so an unchanged checkout builds once and a changed source rebuilds.
+Nothing here runs at import time.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the kernels' launchers (each returns cudaGetLastError())
+_SIGNATURES = {
+    # q, pool, block_tables, seq_lens, out, B, H, H_kv, D, BS, MAXB, W,
+    # is_bf16, stream
+    "paged_decode_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
+    # q, k, v, bias, out, lse, B, H, H_kv, Lq, Lk, D, bias strides (b, h,
+    # q), causal, q_offset, is_bf16, stream
+    "flash_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P],
+}
+
+_LIB = None
+build_seconds = None   # wall time of this process's build (None = not built)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels are built from source")
+    return str(path)
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on the first call."""
+    global _LIB, build_seconds
+    if _LIB is not None:
+        return _LIB
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = CSRC / "build" / digest.hexdigest()[:16]
+    so = out_dir / "libvyomai_kernels.so"
+    if not so.exists():
+        t0 = time.perf_counter()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        if done.returncode:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
+                               f"{' '.join(cmd)}\n{done.stderr}")
+        os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.vyomai_error_string.argtypes = [ctypes.c_int]
+    lib.vyomai_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` from a launcher."""
+    if err:
+        text = _LIB.vyomai_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({text})")
