@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA card.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -9,20 +10,32 @@ and exits non-zero):
 1. device and set-up: require CUDA, disable TF32, print the card's name and
    power limit, build the CUDA kernels from ``vyomai_tpu_torch/csrc``;
 2. K4 paged decode against its plain version at the serving shapes;
-3. K1 flash forward against its plain version at the prefill shapes;
-4. end-to-end serving at Qwen3-0.6B width (``QwenConfig()``, random bf16
+3. K1 flash forward against its plain version at the prefill and training
+   shapes;
+4. K2/K3 flash backward against their plain versions at the training
+   shapes and the contract's edges;
+5. end-to-end serving at Qwen3-0.6B width (``QwenConfig()``, random bf16
    weights from a seeded generator): 24 requests in two waves, the second
-   hitting the radix prefix cache; every kernel's launch count is zeroed
-   just before and read just after;
-5. end-to-end numerics: the same width at 2 layers and fp32, one 520-token
+   hitting the radix prefix cache;
+6. serving numerics: the same width at 2 layers and fp32, one 520-token
    prompt, prefill + 8 teacher-forced decode steps on the card against the
-   same functions on the CPU.
+   same functions on the CPU;
+7. end-to-end training at the width of the JAX package's ``bench.py``
+   (``vyomai_tpu_torch.bench``: 12 layers, hidden 1024, bf16, B=4,
+   S=1024, AdamW): the naive step, then the fused one, 3 warm-up + 10
+   timed steps each on one seeded batch;
+8. training numerics: the same widths at 2 layers and fp32, B=2, S=256,
+   loss and every gradient on the card against the CPU, then one AdamW
+   step and the params.
 
-The line before the last holds the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Each end-to-end path (5, 7) zeroes every kernel's launch count just before
+it and reads the counts just after. The line before the last holds the
+kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -120,7 +133,9 @@ def _engine_bias(torch, n, tp, tctx, dev, g):
 
 
 def phase_flash(torch, flash_fwd, ref_fn, flush, card):
-    """K1 at N=4, H=16, H_kv=8, Tctx=1024 with the engine's bias."""
+    """K1 at N=4, H=16, H_kv=8, Tctx=1024 with the engine's bias, and at
+    the training shapes (B=4, H=16, H_kv=4, L=1024, D=64, causal + zero
+    pad bias)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(12)
     main = None
@@ -136,13 +151,17 @@ def phase_flash(torch, flash_fwd, ref_fn, flush, card):
         ("causal flag", 4, 16, 8, 512, 1024, 128, torch.bfloat16, False,
          True),
         ("D=64 causal", 4, 16, 8, 300, 300, 64, torch.float32, False, True),
+        ("training causal+pad bias", 4, 16, 4, 1024, 1024, 64,
+         torch.bfloat16, True, True),
     ]
     for label, n, h, h_kv, lq, lk, d, dtype, with_bias, causal in cases:
         q = torch.randn(n, h, lq, d, device=dev, generator=g).to(dtype)
         k = torch.randn(n, h_kv, lk, d, device=dev, generator=g).to(dtype)
         v = torch.randn(n, h_kv, lk, d, device=dev, generator=g).to(dtype)
         bias = None
-        if with_bias and lq <= lk - 64:
+        if with_bias and causal:      # the decoder's all-ones pad mask
+            bias = torch.zeros(n, 1, 1, lk, device=dev)
+        elif with_bias and lq <= lk - 64:
             bias = _engine_bias(torch, n, lq, lk, dev, g)
         elif with_bias:
             bias = torch.randn(n, 1, lq, lk, device=dev, generator=g)
@@ -163,6 +182,94 @@ def phase_flash(torch, flash_fwd, ref_fn, flush, card):
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
         if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return main
+
+
+def grad_atol(ref, bf16: bool) -> float:
+    """Kernel vs plain gradients on the same inputs, both reducing in fp32
+    (the plain version over the whole key or query range at once): fp32
+    summation order over up to group * L terms, bounded by 1e-4 of the
+    largest value, plus for bf16 one ulp of the output after the final cast
+    (2^-7 of its largest magnitude)."""
+    top = float(ref.float().abs().max())
+    return ((2.0 ** -7 if bf16 else 0.0) + 1e-4) * top + 1e-6
+
+
+def phase_flash_bwd(torch, fa, flush, card):
+    """K2/K3 against their plain versions at the training shapes (B=4,
+    H=16, H_kv=4, L=1024, D=64, bf16, causal + zero pad bias) and at the
+    contract's edges."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # (label, b, h, h_kv, lq, lk, d, dtype, bias rows, q_offset)
+        ("training causal+pad bias", 4, 16, 4, 1024, 1024, 64, bf, 1, None),
+        ("D=128 H_kv=8 causal", 4, 16, 8, 1024, 1024, 128, f32, 0, None),
+        ("ragged Lq=37 Lk=1000 q_offset=900", 4, 16, 4, 37, 1000, 64, bf, 0,
+         900),
+        ("full bias, masked rows", 4, 16, 4, 512, 512, 128, bf, 512, None),
+        ("group 1 causal", 4, 16, 16, 1024, 1024, 64, bf, 1, None),
+    ]
+    main = None
+    for label, b, h, h_kv, lq, lk, d, dtype, rows, q_off in cases:
+        q = torch.randn(b, h, lq, d, device=dev, generator=g).to(dtype)
+        k = torch.randn(b, h_kv, lk, d, device=dev, generator=g).to(dtype)
+        v = torch.randn(b, h_kv, lk, d, device=dev, generator=g).to(dtype)
+        do = torch.randn(b, h, lq, d, device=dev, generator=g).to(dtype)
+        causal = rows <= 1
+        bias = None
+        if rows == 1:
+            bias = torch.zeros(b, 1, 1, lk, device=dev)
+        elif rows:
+            bias = torch.randn(b, 1, rows, lk, device=dev, generator=g)
+            bias[bias > 1.0] = float(torch.finfo(torch.float32).min)
+            bias[:, :, 7] = float(torch.finfo(torch.float32).min)
+        kw = dict(causal=causal, q_offset=q_off)
+        out, lse = fa.flash_attention_fwd(q, k, v, bias, **kw)
+        delta = fa._delta(out, do)
+        dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ref_dq = fa.flash_bwd_dq_ref(q, k, v, bias, do, lse, delta, **kw)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_ref(q, k, v, bias, do, lse, delta,
+                                              **kw)
+        errs = {}
+        for name, x, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                             ("dv", dv, ref_dv)):
+            err = float((x.float() - ref.float()).abs().max())
+            atol = grad_atol(ref, dtype == bf)
+            check(bool(torch.isfinite(x).all()), f"K2/K3 {label}: {name} "
+                  "not finite")
+            check(err <= atol, f"K2/K3 {label} {dtype}: {name} max err "
+                  f"{err} > {atol}")
+            errs[name] = (err, atol)
+        if rows > 1:
+            check(bool(torch.all(dq[:, :, 7] == 0)),
+                  "K2: a fully-masked row got a nonzero gradient")
+        t = {
+            "K2": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse,
+                                                  delta, **kw), flush, 10),
+            "K3": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, bias, do, lse,
+                                                   delta, **kw), flush, 10),
+            "K2 plain": cuda_ms(lambda: fa.flash_bwd_dq_ref(
+                q, k, v, bias, do, lse, delta, **kw), flush, 10),
+            "K3 plain": cuda_ms(lambda: fa.flash_bwd_dkv_ref(
+                q, k, v, bias, do, lse, delta, **kw), flush, 10),
+        }
+        phase(f"K2/K3 flash_bwd {label} D={d} {str(dtype)[6:]}: max_abs_err "
+              + ", ".join(f"{n}={e:.3g} (atol {a:.3g})"
+                          for n, (e, a) in errs.items())
+              + "; " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in t.items())
+              + f" [{card}]")
+        if main is None:
+            main = {
+                "flash_bwd_dq": dict(max_abs_err=errs["dq"][0], ms=t["K2"],
+                                     plain_ms=t["K2 plain"]),
+                "flash_bwd_dkv": dict(
+                    max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                    ms=t["K3"], plain_ms=t["K3 plain"])}
+        del q, k, v, do, out, lse, delta, dq, dk, dv, ref_dq, ref_dk, ref_dv
+    torch.cuda.empty_cache()
     return main
 
 
@@ -265,6 +372,115 @@ def phase_numerics(torch, np, tt, pm):
           f"kernels vs the CPU)")
 
 
+def phase_training(torch, bench, kernels, card):
+    """The JAX ``bench.py`` model and step at full width through
+    ``vyomai_tpu_torch.bench``: naive, then fused with the launch counts
+    zeroed just before and read just after."""
+    naive = bench.train(False, steps=10, warmup=3)
+    torch.cuda.empty_cache()
+    for fn in kernels:
+        fn.launches = 0
+    fused = bench.train(True, steps=10, warmup=3)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    torch.cuda.empty_cache()
+    for name, run in (("naive", naive), ("fused", fused)):
+        losses = run["losses"]
+        check(all(math.isfinite(x) for x in losses),
+              f"training {name}: a loss is not finite: {losses}")
+        check(losses[-1] < losses[0],
+              f"training {name}: the loss did not fall: {losses}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel never ran on the training path: {launches}")
+    check(all(n > 0 for n in fused["launches"].values()),
+          f"a kernel never ran in the timed window: {fused['launches']}")
+    mfu = (bench.model_flops_per_token(fused["n_params"])
+           * fused["tokens_per_s"] / bench.H100_PEAK_BF16)
+    phase(f"training bench.py width ({fused['n_params']} params, bf16, "
+          f"B={bench.BATCH} S={bench.SEQ}): fused "
+          f"{fused['tokens_per_s']:.1f} tok/s, {fused['ms_per_step']:.2f} "
+          f"ms/step, peak {fused['peak_bytes']} bytes; naive "
+          f"{naive['tokens_per_s']:.1f} tok/s, {naive['ms_per_step']:.2f} "
+          f"ms/step, peak {naive['peak_bytes']} bytes; fused/naive "
+          f"{fused['tokens_per_s'] / naive['tokens_per_s']:.4f}, MFU "
+          f"{mfu:.4f}; fused losses {[round(x, 4) for x in fused['losses']]}"
+          f"; launches {launches} (timed window {fused['launches']}) "
+          f"[{card}]")
+    return launches
+
+
+GRAD_RTOL_OF_MAX = 1e-4   # fp32 card vs CPU; each side is ~1.5e-6 of the
+LOSS_RTOL = 1e-5          # max from fp64 at this size (CPU rehearsal)
+
+
+def phase_train_numerics(torch, np, tt, bench, dev="cuda"):
+    """2 layers at bench width, fp32, B=2, S=256, pad-mask zeros and pad
+    token ids: the fused loss and every gradient on the card (K1-K3 on the
+    flash route) against the CPU (their plain versions), then one AdamW
+    step (lr 1e-4, clip 1.0) and the params."""
+    from vyomai_tpu_torch.layers.attention import set_sdpa_impl
+    from vyomai_tpu_torch.training import (create_train_state,
+                                           make_optimizer, make_train_step)
+    cfg = bench.CFG.replace(num_hidden_layers=2)
+    rng = np.random.default_rng(7)
+    ids = rng.integers(2, cfg.vocab_size, (2, 256))
+    ids[0, [3, 100]] = ids[1, 50] = cfg.pad_token_id
+    mask = np.ones_like(ids)
+    mask[1, 200:] = 0
+    lr = 1e-4
+    init = bench.build(cfg, device="cpu", dtype=torch.float32).state_dict()
+    runs = {}
+    set_sdpa_impl("flash")
+    try:
+        for where in ("cpu", dev):
+            model = tt.DecoderModel(cfg, "rope", "gqa", device=where)
+            model.load_state_dict(init)
+            batch = {"ids": torch.from_numpy(ids).to(where),
+                     "mask": torch.from_numpy(mask).to(where)}
+            loss, _ = bench.fused_loss(model, batch)
+            loss.backward()
+            grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            opt = make_optimizer(lr)
+            make_train_step(bench.fused_loss, opt)(
+                create_train_state(model, opt), batch)
+            # the step recomputed the gradients and clipped them in place:
+            # .grad now holds what AdamW read
+            runs[where] = (float(loss.detach()), grads,
+                           {n: p.grad.cpu()
+                            for n, p in model.named_parameters()},
+                           {n: p.detach().cpu()
+                            for n, p in model.named_parameters()})
+    finally:
+        set_sdpa_impl("auto")
+    (l_cpu, g_cpu, c_cpu, p_cpu) = runs["cpu"]
+    (l_gpu, g_gpu, c_gpu, p_gpu) = runs[dev]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    check(loss_err <= LOSS_RTOL, f"training loss card {l_gpu} vs CPU {l_cpu}")
+    grad_err = param_err = 0.0
+    for name, want in g_cpu.items():
+        top = float(want.abs().max())
+        diff = (g_gpu[name] - want).abs()
+        err = float(diff.max()) / top if top else float(diff.max())
+        check(err <= GRAD_RTOL_OF_MAX, f"grad {name}: {err} of its max")
+        grad_err = max(grad_err, err)
+        # Adam's first step moves a param by lr * g / (|g| + eps) for the
+        # clipped gradient g: two of them, g and g', move it apart by at
+        # most lr * min(2, 2|g - g'| / |g|); on top, fp32 rounding of the
+        # param (1e-6 of its max)
+        seen = c_cpu[name].abs()
+        spread = torch.clamp(2 * (c_gpu[name] - c_cpu[name]).abs() / seen,
+                             max=2.0).nan_to_num(2.0)
+        bound = lr * spread + 1e-6 * float(p_cpu[name].abs().max())
+        moved = (p_gpu[name] - p_cpu[name]).abs()
+        check(bool(torch.all(moved <= bound)),
+              f"param {name} after one AdamW step: {float(moved.max())}")
+        param_err = max(param_err, float((moved / bound).max()))
+    phase(f"training numerics 2L fp32 B=2 S=256: loss card {l_gpu} vs CPU "
+          f"{l_cpu} (rel {loss_err:.3g}, tol {LOSS_RTOL}); max grad err "
+          f"{grad_err:.3g} of each tensor's max (tol {GRAD_RTOL_OF_MAX}); "
+          f"params after one AdamW step within {param_err:.3g} of the "
+          f"bound lr*min(2, 2|dg|/|g|) + 1e-6*max|p|")
+
+
 def main():
     check((ROOT / "vyomai_tpu_torch" / "csrc").is_dir(),
           "run from a checkout: vyomai_tpu_torch/ not found beside this "
@@ -273,7 +489,7 @@ def main():
     import numpy as np
     import torch
 
-    phase("1/5 device and set-up")
+    phase("1/8 device and set-up")
     check(torch.cuda.is_available(), "no CUDA device: this script runs the "
           "port on an NVIDIA card and does not fall back to the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -288,7 +504,9 @@ def main():
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     import vyomai_tpu_torch as tt
+    from vyomai_tpu_torch import bench
     from vyomai_tpu_torch.ops import _build
+    from vyomai_tpu_torch.ops import flash_attention as fa
     from vyomai_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_ref)
     from vyomai_tpu_torch.ops.paged_decode import (
@@ -300,28 +518,43 @@ def main():
           f"(nvcc {_build.build_seconds} s)")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    phase("2/5 K4 paged decode vs plain")
+    phase("2/8 K4 paged decode vs plain")
     k4 = phase_decode(torch, paged_decode, paged_attention_decode_ref,
                       flush, card)
-    phase("3/5 K1 flash forward vs plain")
+    phase("3/8 K1 flash forward vs plain")
     k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
                      flush, card)
+    phase("4/8 K2/K3 flash backward vs plain")
+    k23 = phase_flash_bwd(torch, fa, flush, card)
     del flush
-    phase("4/5 end-to-end serving")
-    launches = phase_serving(torch, np, tt,
-                             (paged_decode, flash_attention_fwd), card)
-    phase("5/5 end-to-end numerics")
+    phase("5/8 end-to-end serving")
+    served = phase_serving(torch, np, tt,
+                           (paged_decode, flash_attention_fwd), card)
+    phase("6/8 serving numerics")
     phase_numerics(torch, np, tt, pm)
+    phase("7/8 end-to-end training")
+    trained = phase_training(torch, bench, bench.KERNELS, card)
+    phase("8/8 training numerics")
+    phase_train_numerics(torch, np, tt, bench)
 
     record = {"kernels": [
         {"name": "paged_decode", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
          "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
-         "launches": launches["paged_decode"], **k4},
+         "launches": served["paged_decode"], **k4},
         {"name": "flash_fwd", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "vyomai_tpu/ops/flash_attention.py:157",
-         "launches": launches["flash_attention_fwd"], **k1},
+         "launches": served["flash_attention_fwd"]
+         + trained["flash_attention_fwd"], **k1},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "vyomai_tpu/ops/flash_attention.py:362",
+         "launches": trained["flash_bwd_dq"], **k23["flash_bwd_dq"]},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "vyomai_tpu/ops/flash_attention.py:411",
+         "launches": trained["flash_bwd_dkv"], **k23["flash_bwd_dkv"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ import torch
 
 import vyomai_tpu as vt
 import vyomai_tpu_torch as tt
-from vyomai_tpu_torch.interop import params_from_jax
+from vyomai_tpu_torch.interop import (decoder_params_from_jax,
+                                      decoder_tree_from_torch,
+                                      params_from_jax)
 
 torch.set_num_threads(1)
 
@@ -27,12 +29,15 @@ QCFG = vt.QwenConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
 
 
 def test_import_never_loads_jax(tmp_path):
-    """``import vyomai_tpu_torch`` (engine, kv manager, kernels' wrappers
-    included) from a neutral directory leaves jax unimported."""
+    """``import vyomai_tpu_torch`` (engine, kv manager, kernels' wrappers,
+    decoder, trainer and bench included) from a neutral directory leaves
+    jax unimported."""
     code = ("import sys, vyomai_tpu_torch, vyomai_tpu_torch.interop, "
             "vyomai_tpu_torch.serving.paged_model, "
             "vyomai_tpu_torch.ops.flash_attention, "
-            "vyomai_tpu_torch.ops.paged_decode; "
+            "vyomai_tpu_torch.ops.paged_decode, vyomai_tpu_torch.ops.fused, "
+            "vyomai_tpu_torch.models.decoder, vyomai_tpu_torch.training, "
+            "vyomai_tpu_torch.bench; "
             "print('jax' in sys.modules, 'vyomai_tpu' in sys.modules)")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     done = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
@@ -51,8 +56,9 @@ def test_package_sources_never_import_jax():
         assert "import jax" not in text and "from jax" not in text, path
 
 
-def test_config_defaults_match_jax():
-    ours, theirs = tt.QwenConfig(), vt.QwenConfig()
+@pytest.mark.parametrize("name", ["QwenConfig", "EncoderConfig"])
+def test_config_defaults_match_jax(name):
+    ours, theirs = getattr(tt, name)(), getattr(vt, name)()
     assert [f.name for f in fields(ours)] == [f.name for f in fields(theirs)]
     for f in fields(theirs):
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
@@ -118,3 +124,31 @@ def test_init_uses_only_its_generator():
     w = a.layers[0].self_attn.q_proj.weight
     assert abs(float(w.detach().std()) - 0.02) < 0.005
     assert torch.all(a.layers[0].input_layernorm.weight == 1)
+
+
+@pytest.mark.parametrize("pe,at", [("rope", "gqa"), ("absolute", None),
+                                   ("sinusoidal", "gqa")])
+def test_decoder_bridge_round_trip(pe, at):
+    """``decoder_params_from_jax`` then ``decoder_tree_from_torch`` gives
+    the JAX tree back bit-exact: same keys, shapes, dtypes and values."""
+    cfg = vt.EncoderConfig(hidden_size=64, num_attention_heads=4,
+                           num_key_value_heads=2, num_hidden_layers=2,
+                           vocab_size=128, max_position_embeddings=64)
+    tcfg = tt.EncoderConfig(**{f.name: getattr(cfg, f.name)
+                               for f in fields(cfg)})
+    params = vt.DecoderModel(cfg, pos_embedding_type=pe,
+                             attention_type=at).init(jax.random.PRNGKey(1))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model = decoder_params_from_jax(tree, tcfg, pe, at)
+    assert model.dtype == torch.float32 and len(model.layers) == 2
+    np.testing.assert_array_equal(
+        model.layers[1].attention.key.weight.detach().numpy(),
+        tree["layers"]["attention"]["key"]["kernel"][1].T)
+    back = decoder_tree_from_torch(model)
+    want = dict(jax.tree_util.tree_leaves_with_path(tree))
+    got = jax.tree_util.tree_leaves_with_path(back)
+    assert len(got) == len(want)
+    for path, x in got:
+        w = want[path]
+        assert x.dtype == w.dtype and x.shape == w.shape, path
+        np.testing.assert_array_equal(x, w, err_msg=str(path))

@@ -6,6 +6,7 @@ CUDA kernel under ``csrc/`` (built with nvcc at first use). This package
 never imports jax.
 """
 
-from .config import QwenConfig  # noqa: F401
+from .config import EncoderConfig, QwenConfig  # noqa: F401
+from .models.decoder import DecoderModel  # noqa: F401
 from .models.qwen import ModelForCausalLM  # noqa: F401
 from .serving import ContinuousBatchEngine  # noqa: F401

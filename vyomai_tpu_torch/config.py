@@ -1,13 +1,42 @@
 """Configuration dataclasses for the PyTorch port.
 
-``QwenConfig`` carries the same fields and defaults as
-``vyomai_tpu.config.QwenConfig`` (Qwen3-0.6B's published ``config.json``),
-so one config value describes the model in both packages. Features the
-port does not run yet raise ``NotImplementedError`` at construction.
+``EncoderConfig`` and ``QwenConfig`` carry the same fields and defaults as
+their counterparts in ``vyomai_tpu.config`` (``QwenConfig``: Qwen3-0.6B's
+published ``config.json``), so one config value describes the model in
+both packages. Qwen features the port does not run yet raise
+``NotImplementedError`` at construction.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple, Union
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Text-model config of the encoder/decoder families (RoBERTa-base
+    flavored defaults, 4 layers)."""
+
+    hidden_size: int = 768
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 514
+    num_hidden_layers: int = 4
+    vocab_size: int = 50265
+    hidden_dropout_prob: float = 0.1
+    initializer_range: float = 0.02
+    intermediate_size: int = 3072
+    layer_norm_eps: float = 1e-05
+    hidden_act: str = "gelu"
+    num_key_value_heads: int = 4
+    attention_bias: bool = True
+    pad_token_id: int = 1
+    eos_token_id: int = 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    def replace(self, **kw) -> "EncoderConfig":
+        return replace(self, **kw)
 
 
 @dataclass(frozen=True)

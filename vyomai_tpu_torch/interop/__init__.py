@@ -1,1 +1,2 @@
-from .from_jax import params_from_jax  # noqa: F401
+from .from_jax import (  # noqa: F401
+    decoder_params_from_jax, decoder_tree_from_torch, params_from_jax)

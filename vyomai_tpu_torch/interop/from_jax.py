@@ -1,15 +1,20 @@
-"""Weight bridge from the JAX package's param tree to the port's modules.
+"""Weight bridge between the JAX package's param trees and the port's
+modules.
 
-``params_from_jax`` takes ``vyomai_tpu.models.qwen.ModelForCausalLM``
-params already converted to numpy (``jax.tree_util.tree_map(np.asarray,
-params)``; this module never imports jax), unstacks the ``[L, ...]`` layer
-stacks and transposes the ``[in, out]`` kernels into ``nn.Linear``'s
-``[out, in]``.
+``params_from_jax`` (``vyomai_tpu.models.qwen.ModelForCausalLM``) and
+``decoder_params_from_jax`` (``vyomai_tpu.models.decoder.DecoderModel``)
+take params already converted to numpy (``jax.tree_util.tree_map(
+np.asarray, params)``; this module never imports jax), unstack the
+``[L, ...]`` layer stacks and transpose the ``[in, out]`` kernels into
+``nn.Linear``'s ``[out, in]``. ``decoder_tree_from_torch`` is the inverse,
+for parameters or any tensors named like them (gradients).
 """
 
 import numpy as np
 import torch
+from torch import nn
 
+from ..models.decoder import DecoderModel
 from ..models.qwen import ModelForCausalLM
 
 _LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
@@ -64,3 +69,63 @@ def _get_module(root, path: str):
         if root is None:
             return None
     return root
+
+
+def _jax_path(model: nn.Module, name: str):
+    """A torch parameter name -> (JAX tree keys, layer index or None,
+    whether the tensor is a transposed linear kernel)."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    linear = isinstance(model.get_submodule(".".join(parts[:-1])),
+                        nn.Linear) and leaf == "weight"
+    if linear:
+        leaf = "kernel"
+    if parts[0] == "layers":
+        return ["layers", *parts[2:-1], leaf], int(parts[1]), linear
+    return [*parts[:-1], leaf], None, linear
+
+
+@torch.no_grad()
+def decoder_params_from_jax(tree, config, pos_embedding_type="absolute",
+                            attention_type=None, *, device=None,
+                            dtype=None) -> DecoderModel:
+    """Build a ``DecoderModel`` holding the JAX params ``tree`` (numpy
+    leaves). ``dtype`` defaults to the token table's dtype."""
+    if dtype is None:
+        emb = np.asarray(tree["word_embeddings"]["weight"])
+        dtype = torch.from_numpy(np.empty(0, emb.dtype)).dtype
+    model = DecoderModel(config, pos_embedding_type, attention_type,
+                         device=device, dtype=dtype)
+    for name, p in model.named_parameters():
+        keys, layer, linear = _jax_path(model, name)
+        x = np.asarray(_get(tree, ".".join(keys)))
+        if layer is not None:
+            x = x[layer]
+        _copy(p, x.T if linear else x)
+    return model
+
+
+def decoder_tree_from_torch(model: DecoderModel, tensors=None) -> dict:
+    """The JAX param tree (numpy leaves, layers stacked on ``[L]``) of
+    ``model``'s parameters, or of ``tensors`` (a dict keyed by parameter
+    name, e.g. gradients)."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    tree, stacks = {}, {}
+    for name, _ in model.named_parameters():
+        keys, layer, linear = _jax_path(model, name)
+        x = tensors[name].detach().cpu().numpy()
+        x = x.T if linear else x
+        if layer is None:
+            _set(tree, keys, x)
+        else:
+            stacks.setdefault(tuple(keys), []).append(x)
+    for keys, xs in stacks.items():
+        _set(tree, keys, np.stack(xs))
+    return tree
+
+
+def _set(tree: dict, keys, value):
+    for key in keys[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[keys[-1]] = value

@@ -1,10 +1,57 @@
-"""Rotary position embedding tables (counterpart of
-``vyomai_tpu.layers.positional``; vanilla RoPE only so far)."""
+"""Positional embeddings (counterpart of ``vyomai_tpu.layers.positional``):
+learned absolute, sinusoidal and RoPE tables. RoPE scaling is not ported
+yet.
 
-from typing import Optional
+The constant tables (sinusoidal, RoPE angles) are computed in fp32 on the
+CPU like the JAX tables, so both packages and every device use the same
+values.
+"""
+
+import math
+from typing import Optional, Tuple
 
 import torch
 
+from ..core import nn as cnn
+
+
+# -- absolute (learned) -----------------------------------------------------------
+
+def absolute_init_(weight: torch.Tensor, config, generator: torch.Generator):
+    """Normal(0, initializer_range) position table (no pad row zeroed)."""
+    cnn.embedding_init_(weight, config.initializer_range, generator)
+
+
+def absolute_slice(weight: torch.Tensor, start_pos: int, length: int,
+                   pad_idx: Optional[int] = None) -> torch.Tensor:
+    """Positions ``[start_pos, start_pos + length)`` -> ``[1, length, D]``.
+
+    ``pad_idx`` keeps the reference's ``nn.Embedding(padding_idx=...)`` on
+    the position table: position row ``pad_idx`` is a real position whose
+    row never gets a gradient (a training quirk kept for parity)."""
+    positions = start_pos + torch.arange(length, device=weight.device)
+    return cnn.embedding(weight, positions, pad_idx=pad_idx)[None]
+
+
+# -- sinusoidal (constant) ----------------------------------------------------------
+
+def sinusoidal_table(max_len: int, dim: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Interleaved ``sin`` (even) / ``cos`` (odd) table ``[1, max_len,
+    dim]``."""
+    if dim % 2 != 0:
+        raise ValueError(
+            f"SinusoidalEncoding requires even hidden dim, got {dim}")
+    pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32)
+                    * -(math.log(10000.0) / dim))
+    tab = torch.zeros((max_len, dim), dtype=torch.float32)
+    tab[:, 0::2] = torch.sin(pos * div)
+    tab[:, 1::2] = torch.cos(pos * div)
+    return tab.to(dtype)[None]
+
+
+# -- RoPE ---------------------------------------------------------------------------
 
 def rope_freqs(max_len: int, head_dim: int, theta: float = 10000.0,
                dtype=torch.float32, scaling: Optional[dict] = None
@@ -29,3 +76,14 @@ def rope_attention_factor(scaling: Optional[dict]) -> float:
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor,
+                         freqs: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF-style rotation. ``freqs``: ``[1, L, head_dim // 2]``; q, k:
+    ``[B, H, L, D]``."""
+    emb = torch.cat([freqs, freqs], dim=-1)
+    cos = torch.cos(emb).to(q.dtype)[:, None]
+    sin = torch.sin(emb).to(q.dtype)[:, None]
+    return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``vyomai_tpu_torch/csrc/*.cu`` sources compile with ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface, loaded with
-``ctypes``. The build runs at first use, into
+Each ``vyomai_tpu_torch/csrc/*.cu`` source compiles with its own ``nvcc``
+for ``sm_90a``, all started together, and the objects link into ONE shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at first use, into
 ``vyomai_tpu_torch/csrc/build/<hash>/``, keyed by a hash of the sources and
 flags, so an unchanged checkout builds once and a changed source rebuilds.
 Nothing here runs at import time.
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the kernels' launchers (each returns cudaGetLastError())
@@ -32,6 +33,11 @@ _SIGNATURES = {
     # q), causal, q_offset, is_bf16, stream
     "flash_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, bias, dout, lse, delta, dq, B, H, H_kv, Lq, Lk, D, bias
+    # strides (b, h, q), causal, q_offset, is_bf16, stream
+    "flash_bwd_dq_launch": [_P] * 8 + [_I] * 12 + [_P],
+    # q, k, v, bias, dout, lse, delta, dk, dv, then as flash_bwd_dq_launch
+    "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 12 + [_P],
 }
 
 _LIB = None
@@ -50,6 +56,21 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the failures' stderr."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on the first call."""
     global _LIB, build_seconds
@@ -65,14 +86,16 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         t0 = time.perf_counter()
         out_dir.mkdir(parents=True, exist_ok=True)
+        objs = [out_dir / f"{src.stem}.o" for src in sources]
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources, objs)])
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        done = subprocess.run(cmd, capture_output=True, text=True)
-        if done.returncode:
+        try:
+            _run_all([[_nvcc(), "-shared", "-o", tmp, *map(str, objs)]])
+        except RuntimeError:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
-                               f"{' '.join(cmd)}\n{done.stderr}")
+            raise
         os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
