@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA
-card.
+"""Drive the PyTorch port's serving, decoder-training and encoder-family
+paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -26,10 +26,19 @@ and exits non-zero):
    timed steps each on one seeded batch;
 8. training numerics: the same widths at 2 layers and fp32, B=2, S=256,
    loss and every gradient on the card against the CPU, then one AdamW
-   step and the params.
+   step and the params;
+9. K5/K6/K7 (short attention) against their plain versions at the ViT,
+   MLM and edge shapes, beside SDPA and K1 on the same operands;
+10. end-to-end ViT-base/16 (``vyomai_tpu_torch.encoder_bench``: 12 layers,
+    bf16): forward img/s at B=128, 3 warm-up + 10 timed train steps at
+    B=32, on the "auto" (K6/K7) and "xla" routes;
+11. end-to-end RoBERTa-base MLM (12 layers, bf16, right-padded) at S=128
+    B=64 and S=512 B=16 on both routes (K5/K7 on "auto");
+12. encoder numerics: ViT and MLM at 2 layers and fp32, loss and every
+    gradient on the card (kernels) against the CPU (plain versions).
 
-Each end-to-end path (5, 7) zeroes every kernel's launch count just before
-it and reads the counts just after. The line before the last holds the
+Each end-to-end path (5, 7, 10, 11) zeroes every kernel's launch count
+just before it and reads the counts just after. The line before the last holds the
 kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -83,6 +92,61 @@ def bf16_atol(ref) -> float:
 
 FP32_ATOL = 1e-4   # fp32 kernels vs plain fp32 (summation order only)
 
+# One H100 SXM's published peaks (700 W): HBM bytes/s, and FLOP/s for the
+# inputs' type: the dense bf16 tensor-core rate for bf16 inputs, the fp32
+# rate outside the tensor cores for fp32 inputs (TF32 would round them).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """The least time the card could take for this work: the larger of
+    the bytes that must move over the memory rate and the operations over
+    the peak rate for the inputs' type."""
+    t_ops = flops / PEAK_FLOPS[str(dtype)]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def live_mask(torch, bias, lq, lk, causal, q_offset):
+    """Which (query, key) pairs a call attends ``[B|1, H|1, Lq, Lk]``:
+    the bias above the mask constant and, with ``causal``, keys at or
+    before ``q_offset + row``."""
+    ok = None if bias is None else bias > -1e30
+    if causal:
+        dev = bias.device if bias is not None else "cuda"
+        rows = q_offset + torch.arange(lq, device=dev)[:, None]
+        tri = torch.arange(lk, device=dev)[None, :] <= rows
+        ok = tri if ok is None else ok & tri
+    return ok
+
+
+def live_pairs(torch, bias, b, h, lq, lk, causal=False, q_offset=None):
+    """The count of attended (query, key) pairs over batch and heads."""
+    ok = live_mask(torch, bias, lq, lk, causal,
+                   lk - lq if q_offset is None else q_offset)
+    if ok is None:
+        return b * h * lq * lk
+    return int(ok.expand(b, h, lq, lk).sum())
+
+
+def sdpa_mask(torch, bias, lq, lk, causal, q_offset, dtype):
+    """The additive mask ``scaled_dot_product_attention`` takes for the
+    same call (in q's dtype), or None."""
+    ok = live_mask(torch, None, lq, lk, causal,
+                   lk - lq if q_offset is None else q_offset)
+    neg = float(torch.finfo(torch.float32).min)
+    mask = None if ok is None else torch.where(ok, 0.0, neg)
+    if bias is not None:
+        mask = bias if mask is None else torch.clamp_min(bias + mask, neg)
+    return None if mask is None else mask.to(dtype)
+
 
 def phase_decode(torch, paged_decode, ref_fn, flush, card):
     """K4 at B=16, H=16, H_kv=8, BS=16, MAXB=64."""
@@ -115,7 +179,14 @@ def phase_decode(torch, paged_decode, ref_fn, flush, card):
               f"(atol {atol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"[{card}]")
         if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            # no single PyTorch call reads a block-table pool
+            live = int(torch.clamp(sl.long(), max=maxb * bs).sum())
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=None, **bound(
+                            4 * d * h * live,
+                            (q.numel() + 2 * live * h_kv * d)
+                            * q.element_size() + nbytes(bt, sl, out),
+                            dtype))
     return main
 
 
@@ -181,7 +252,17 @@ def phase_flash(torch, flash_fwd, ref_fn, flush, card):
               f"max_abs_err={err} lse_err={lse_err} (atol {atol}) "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
         if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            mask = sdpa_mask(torch, bias, lq, lk, causal, None, dtype)
+            lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=h != h_kv), flush,
+                iters=10)
+            pairs = live_pairs(torch, bias, n, h, lq, lk, causal)
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, **bound(
+                            4 * d * pairs, nbytes(q, k, v, bias, out, lse),
+                            dtype))
+            phase(f"K1 main case: SDPA {lib_ms:.4f} ms, bound "
+                  f"{main['bound_ms']:.4f} ms ({main['bound_by']})")
     return main
 
 
@@ -262,12 +343,30 @@ def phase_flash_bwd(torch, fa, flush, card):
               + "; " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in t.items())
               + f" [{card}]")
         if main is None:
+            # SDPA's backward computes dq, dk and dv at once: one figure
+            # for K2 + K3
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=sdpa_mask(torch, bias, lq, lk, causal,
+                                             q_off, dtype),
+                enable_gqa=h != h_kv)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, do, retain_graph=True), flush, 10)
+            pairs = live_pairs(torch, bias, b, h, lq, lk, causal, q_off)
+            ins = (q, k, v, do, lse, delta, bias)
             main = {
-                "flash_bwd_dq": dict(max_abs_err=errs["dq"][0], ms=t["K2"],
-                                     plain_ms=t["K2 plain"]),
+                "flash_bwd_dq": dict(
+                    max_abs_err=errs["dq"][0], ms=t["K2"],
+                    plain_ms=t["K2 plain"], library_ms=lib_ms,
+                    **bound(6 * d * pairs, nbytes(*ins, dq), dtype)),
                 "flash_bwd_dkv": dict(
                     max_abs_err=max(errs["dk"][0], errs["dv"][0]),
-                    ms=t["K3"], plain_ms=t["K3 plain"])}
+                    ms=t["K3"], plain_ms=t["K3 plain"], library_ms=lib_ms,
+                    **bound(8 * d * pairs, nbytes(*ins, dk, dv), dtype))}
+            phase(f"K2+K3 main case: SDPA backward {lib_ms:.4f} ms; bounds "
+                  f"K2 {main['flash_bwd_dq']['bound_ms']:.4f} ms, K3 "
+                  f"{main['flash_bwd_dkv']['bound_ms']:.4f} ms")
+            del leaves, lib_out
         del q, k, v, do, out, lse, delta, dq, dk, dv, ref_dq, ref_dk, ref_dv
     torch.cuda.empty_cache()
     return main
@@ -330,7 +429,7 @@ def phase_numerics(torch, np, tt, pm):
     """2 layers, fp32: card vs CPU on a 520-token prompt, 8 decode steps
     teacher-forced along the CPU's greedy tokens."""
     cfg = tt.QwenConfig(num_hidden_layers=2)
-    cpu = tt.ModelForCausalLM(cfg, dtype=torch.float32)
+    cpu = tt.ModelForCausalLM(cfg, device="cpu", dtype=torch.float32)
     cpu.init(torch.Generator().manual_seed(3)).requires_grad_(False)
     gpu = tt.ModelForCausalLM(cfg, device="cuda", dtype=torch.float32)
     gpu.load_state_dict(cpu.state_dict())
@@ -481,6 +580,259 @@ def phase_train_numerics(torch, np, tt, bench, dev="cuda"):
           f"bound lr*min(2, 2|dg|/|g|) + 1e-6*max|p|")
 
 
+def phase_short(torch, sa, fa, flush, card):
+    """K5/K6/K7 against their plain versions at the ViT shapes (packed
+    [128, 197, 2304] and [32, 197, 2304], bf16), the MLM shapes (B=64 L=128
+    and B=16 L=512, H=12, D=64, bf16 key-pad bias, batch row 0 with every
+    key padded) and the edges (odd H, D=32 and 128, L=8 and 512, fp32);
+    each beside SDPA (forward, and its backward through autograd) and K1
+    at the same unpacked shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    bf, f32 = torch.bfloat16, torch.float32
+    neg = float(torch.finfo(torch.float32).min)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [  # (label, b, h, l, d, dtype, key-pad bias?, packed?)
+        ("ViT fwd B=128 packed", 128, 12, 197, 64, bf, False, True),
+        ("ViT train B=32 packed", 32, 12, 197, 64, bf, False, True),
+        ("MLM S=128 B=64", 64, 12, 128, 64, bf, True, False),
+        ("MLM S=512 B=16", 16, 12, 512, 64, bf, True, False),
+        ("odd H=5 D=32 L=8", 4, 5, 8, 32, f32, True, False),
+        ("D=128 L=512", 2, 4, 512, 128, f32, True, False),
+        ("odd H=3 D=128 L=100 packed", 3, 3, 100, 128, bf, False, True),
+    ]
+    found = {}
+    for label, b, h, l, d, dtype, pad, packed in cases:
+        if packed:
+            qkv = torch.randn(b, l, 3 * h * d, device=dev,
+                              generator=g).to(dtype)
+            q, k, v = sa._unpack(qkv, h)
+            fwd = lambda: sa.short_attention_qkv_fwd(qkv, h)  # noqa: E731
+            ref_fwd = lambda: sa.short_attention_qkv_ref(qkv, h)  # noqa
+        else:
+            q, k, v = (torch.randn(b, h, l, d, device=dev, generator=g)
+                       .to(dtype) for _ in range(3))
+        do = torch.randn(b, h, l, d, device=dev, generator=g).to(dtype)
+        bias = None
+        if pad:
+            lens = torch.randint(l // 2, l + 1, (b,), device=dev, generator=g)
+            lens[0] = 0                   # every key of row 0 padded
+            bias = torch.where(torch.arange(l, device=dev)[None]
+                               < lens[:, None], 0.0, neg)[:, None, None]
+        if not packed:
+            fwd = lambda: sa.short_attention_fwd(q, k, v, bias)  # noqa
+            ref_fwd = lambda: sa.short_attention_fwd_ref(  # noqa: E731
+                q, k, v, bias)
+        out, stats = fwd()
+        torch.cuda.synchronize()
+        ref, _ = ref_fwd()
+        err = float((out.float() - ref.float()).abs().max())
+        atol = FP32_ATOL if dtype == f32 else bf16_atol(ref)
+        check(err <= atol, f"K5/K6 {label}: max err {err} > {atol}")
+        out4 = out.view(b, l, h, d).transpose(1, 2) if packed else out
+        if pad:   # a row whose keys are all padded: the mean of V
+            mean_v = v[0].float().mean(dim=1, keepdim=True)
+            m_err = float((out4[0].float() - mean_v).abs().max())
+            check(m_err <= atol, f"K5 {label}: padded row vs mean of V "
+                  f"{m_err} > {atol}")
+        delta = sa._delta(out4, do)
+        grads = sa._unpack(torch.empty_like(qkv), h) if packed else None
+        got = sa.short_attention_bwd(q, k, v, bias, do, stats, delta,
+                                     grads=grads)
+        torch.cuda.synchronize()
+        want = sa.short_attention_bwd_ref(q, k, v, bias, do, stats, delta)
+        g_err = 0.0
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            e = float((x.float() - w.float()).abs().max())
+            check(bool(torch.isfinite(x).all()), f"K7 {label}: {name} not "
+                  "finite")
+            a = grad_atol(w, dtype == bf)
+            check(e <= a, f"K7 {label}: {name} max err {e} > {a}")
+            g_err = max(g_err, e)
+        mask = None if bias is None else bias.to(dtype)
+        t = {"fwd": cuda_ms(fwd, flush, 10),
+             "fwd plain": cuda_ms(ref_fwd, flush, 10),
+             "fwd SDPA": cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask),
+                                 flush, 10),
+             "bwd": cuda_ms(lambda: sa.short_attention_bwd(
+                 q, k, v, bias, do, stats, delta, grads=grads), flush, 10),
+             "bwd plain": cuda_ms(lambda: sa.short_attention_bwd_ref(
+                 q, k, v, bias, do, stats, delta), flush, 10)}
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves, attn_mask=mask)
+        t["bwd SDPA"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True), flush, 10)
+        if d in (64, 128):   # K1 on the same operands, contiguous
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            t["K1 fwd"] = cuda_ms(lambda: fa.flash_attention_fwd(
+                qc, kc, vc, bias), flush, 10)
+        pairs = live_pairs(torch, bias, b, h, l, l)
+        fwd_rec = dict(max_abs_err=err, ms=t["fwd"], plain_ms=t["fwd plain"],
+                       library_ms=t["fwd SDPA"], **bound(
+                           4 * d * pairs, nbytes(q, k, v, bias, out, stats),
+                           dtype))
+        bwd_rec = dict(max_abs_err=g_err, ms=t["bwd"],
+                       plain_ms=t["bwd plain"], library_ms=t["bwd SDPA"],
+                       **bound(10 * d * pairs, nbytes(
+                           q, k, v, do, stats, delta, bias, *got), dtype))
+        phase(f"K5/K6/K7 short {label} H={h} L={l} D={d} {str(dtype)[6:]}: "
+              f"fwd max_abs_err={err:.3g} (atol {atol:.3g}), bwd "
+              f"{g_err:.3g}; " + ", ".join(f"{n} {ms:.4f} ms"
+                                          for n, ms in t.items())
+              + f"; bounds fwd {fwd_rec['bound_ms']:.4f} ms "
+              f"({fwd_rec['bound_by']}), bwd {bwd_rec['bound_ms']:.4f} ms "
+              f"({bwd_rec['bound_by']}) [{card}]")
+        found[label] = (fwd_rec, bwd_rec)
+        del q, k, v, do, out, stats, ref, got, want, leaves, lib_out
+    torch.cuda.empty_cache()
+    return {"K5": found["MLM S=128 B=64"][0],
+            "K6": found["ViT fwd B=128 packed"][0],
+            "K7": found["ViT train B=32 packed"][1]}
+
+
+def _losses_fall(name: str, losses):
+    check(all(math.isfinite(x) for x in losses),
+          f"{name}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}")
+
+
+def phase_vit(torch, eb, kernels, card):
+    """ViT-base/16 at 12 layers, bf16: forward img/s at B=128, then 3
+    warm-up and 10 timed train steps at B=32, on the "auto" and "xla"
+    routes (``encoder_bench.bench_vit``)."""
+    for fn in kernels:
+        fn.launches = 0
+    rec = eb.bench_vit(steps=10, warmup=3)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    torch.cuda.empty_cache()
+    timed = rec["short"]["launches"]
+    check(timed["short_attention_qkv_fwd"] > 0
+          and timed["short_attention_bwd"] > 0,
+          f"K6/K7 never ran in ViT's timed window: {timed}")
+    for route in ("short", "xla"):
+        _losses_fall(f"ViT {route}", rec[route]["losses"])
+    phase(f"ViT-base/16 bf16: fwd B={rec['batch']} "
+          f"{rec['short']['fwd_img_s']:.1f} img/s (xla "
+          f"{rec['xla']['fwd_img_s']:.1f}), train B={rec['train_batch']} "
+          f"{rec['short']['train_img_s']:.1f} img/s, "
+          f"{rec['short']['step_ms']:.2f} ms/step, peak "
+          f"{rec['short']['peak_bytes']} bytes (xla "
+          f"{rec['xla']['train_img_s']:.1f} img/s, "
+          f"{rec['xla']['step_ms']:.2f} ms, peak {rec['xla']['peak_bytes']}"
+          f"); losses {[round(x, 4) for x in rec['short']['losses']]}; "
+          f"launches {launches} (timed window {timed}) [{card}]")
+    return launches
+
+
+def phase_mlm(torch, eb, kernels, card):
+    """RoBERTa-base MLM at 12 layers, bf16, right-padded: S=128 B=64 and
+    S=512 B=16 on the "auto" and "xla" routes
+    (``encoder_bench.bench_mlm``)."""
+    for fn in kernels:
+        fn.launches = 0
+    recs = [eb.bench_mlm(seq, b, steps=10, warmup=3)
+            for seq, b in eb.MLM_SHAPES]
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    torch.cuda.empty_cache()
+    for rec in recs:
+        timed = rec["short_launches"]
+        check(timed["short_attention_fwd"] > 0
+              and timed["short_attention_bwd"] > 0,
+              f"K5/K7 never ran in MLM S={rec['seq']}'s timed window: "
+              f"{timed}")
+        for route in ("short", "xla"):
+            _losses_fall(f"MLM S={rec['seq']} {route}",
+                         rec[f"{route}_losses"])
+        phase(f"RoBERTa-base MLM bf16 S={rec['seq']} B={rec['batch']} "
+              f"({rec['real_tokens']} real tokens): train "
+              f"{rec['short_tokens_per_sec']:.1f} tok/s, "
+              f"{rec['short_step_ms']:.2f} ms/step, peak "
+              f"{rec['short_peak_bytes']} bytes (xla "
+              f"{rec['xla_tokens_per_sec']:.1f} tok/s, "
+              f"{rec['xla_step_ms']:.2f} ms, peak {rec['xla_peak_bytes']}); "
+              f"fwd {rec['fwd_short_tokens_per_sec']:.1f} tok/s (xla "
+              f"{rec['fwd_xla_tokens_per_sec']:.1f}); losses "
+              f"{[round(x, 4) for x in rec['short_losses']]}; timed window "
+              f"{timed} [{card}]")
+    phase(f"MLM launches {launches}")
+    return launches
+
+
+def _grads_close(label, l_cpu, g_cpu, l_dev, g_dev):
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    check(loss_err <= LOSS_RTOL, f"{label} loss card {l_dev} vs CPU {l_cpu}")
+    # a tensor's scale is its largest value, floored at 1e-3 of the
+    # largest gradient of the model: the key projection's bias gets an
+    # exactly-zero gradient (softmax ignores a per-row shift), which both
+    # sides leave as fp32 noise of different orders
+    floor = 1e-3 * max(float(g.abs().max()) for g in g_cpu.values())
+    worst = 0.0
+    for name, want in g_cpu.items():
+        top = max(float(want.abs().max()), floor)
+        diff = float((g_dev[name] - want).abs().max())
+        err = diff / top
+        check(err <= GRAD_RTOL_OF_MAX, f"{label} grad {name}: {err} of its "
+              "max")
+        worst = max(worst, err)
+    phase(f"{label} numerics: loss card {l_dev} vs CPU {l_cpu} (rel "
+          f"{loss_err:.3g}, tol {LOSS_RTOL}); max grad err {worst:.3g} of "
+          f"each tensor's max (tol {GRAD_RTOL_OF_MAX})")
+
+
+def phase_encoder_numerics(torch, np, eb, kernels, dev="cuda"):
+    """ViT and RoBERTa MLM at 2 layers, fp32, on the "short" route: the
+    loss and every gradient on the card (K5/K6/K7) against the CPU (their
+    plain versions)."""
+    from vyomai_tpu_torch.layers.attention import set_sdpa_impl
+    f32 = torch.float32
+    rng = np.random.default_rng(8)
+    vcfg = eb.VIT_CFG.replace(num_hidden_layers=2)
+    h, w = vcfg.image_size
+    vit_batch = {"images": rng.standard_normal((2, 3, h, w), np.float32),
+                 "labels": rng.integers(0, 10, 2)}
+    mcfg = eb.MLM_CFG.replace(num_hidden_layers=2)
+    mlm_batch, _ = eb.mlm_batch(mcfg, 128, 2, device="cpu", seed=9)
+
+    def vit_model(where):
+        return eb.VitClassifier(vcfg, 10, device=where, dtype=f32)
+
+    def mlm_model(where):
+        from vyomai_tpu_torch import EncoderForMaskedLM
+        return EncoderForMaskedLM(mcfg, "absolute", device=where, dtype=f32)
+
+    gen = torch.Generator().manual_seed(10)
+    vit_init = vit_model("cpu")
+    vit_init.vit.init(gen)
+    torch.nn.init.normal_(vit_init.head.weight, 0.0, 0.02, generator=gen)
+    torch.nn.init.zeros_(vit_init.head.bias)
+    mlm_init = mlm_model("cpu").init(gen)
+    cases = (("ViT 2L fp32 B=2", vit_model, vit_init.state_dict(),
+              eb.vit_loss, {k: torch.as_tensor(x)
+                            for k, x in vit_batch.items()}),
+             ("MLM 2L fp32 S=128 B=2", mlm_model, mlm_init.state_dict(),
+              eb.mlm_loss, mlm_batch))
+    set_sdpa_impl("short")
+    try:
+        for label, build, init, loss_fn, batch in cases:
+            runs = {}
+            for where in ("cpu", dev):
+                model = build(where)
+                model.load_state_dict(init)
+                before = sum(fn.launches for fn in kernels)
+                loss, _ = loss_fn(model, {k: x.to(where)
+                                          for k, x in batch.items()})
+                loss.backward()
+                if where != "cpu":
+                    check(sum(fn.launches for fn in kernels) > before,
+                          f"{label}: no short-attention kernel ran")
+                runs[where] = (float(loss.detach()),
+                               {n: p.grad.cpu()
+                                for n, p in model.named_parameters()})
+            _grads_close(label, *runs["cpu"], *runs[dev])
+    finally:
+        set_sdpa_impl("auto")
+
+
 def main():
     check((ROOT / "vyomai_tpu_torch" / "csrc").is_dir(),
           "run from a checkout: vyomai_tpu_torch/ not found beside this "
@@ -489,7 +841,7 @@ def main():
     import numpy as np
     import torch
 
-    phase("1/8 device and set-up")
+    phase("1/12 device and set-up")
     check(torch.cuda.is_available(), "no CUDA device: this script runs the "
           "port on an NVIDIA card and does not fall back to the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -505,12 +857,14 @@ def main():
 
     import vyomai_tpu_torch as tt
     from vyomai_tpu_torch import bench
+    from vyomai_tpu_torch import encoder_bench as eb
     from vyomai_tpu_torch.ops import _build
     from vyomai_tpu_torch.ops import flash_attention as fa
     from vyomai_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_ref)
     from vyomai_tpu_torch.ops.paged_decode import (
         paged_attention_decode_ref, paged_decode)
+    from vyomai_tpu_torch.ops import short_attention as sa
     from vyomai_tpu_torch.serving import paged_model as pm
     t0 = time.perf_counter()
     _build.library()
@@ -518,24 +872,34 @@ def main():
           f"(nvcc {_build.build_seconds} s)")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    phase("2/8 K4 paged decode vs plain")
+    phase("2/12 K4 paged decode vs plain")
     k4 = phase_decode(torch, paged_decode, paged_attention_decode_ref,
                       flush, card)
-    phase("3/8 K1 flash forward vs plain")
+    phase("3/12 K1 flash forward vs plain")
     k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
                      flush, card)
-    phase("4/8 K2/K3 flash backward vs plain")
+    phase("4/12 K2/K3 flash backward vs plain")
     k23 = phase_flash_bwd(torch, fa, flush, card)
     del flush
-    phase("5/8 end-to-end serving")
+    phase("5/12 end-to-end serving")
     served = phase_serving(torch, np, tt,
                            (paged_decode, flash_attention_fwd), card)
-    phase("6/8 serving numerics")
+    phase("6/12 serving numerics")
     phase_numerics(torch, np, tt, pm)
-    phase("7/8 end-to-end training")
+    phase("7/12 end-to-end training")
     trained = phase_training(torch, bench, bench.KERNELS, card)
-    phase("8/8 training numerics")
+    phase("8/12 training numerics")
     phase_train_numerics(torch, np, tt, bench)
+    phase("9/12 K5/K6/K7 short attention vs plain")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    k567 = phase_short(torch, sa, fa, flush, card)
+    del flush
+    phase("10/12 end-to-end ViT-base")
+    vit = phase_vit(torch, eb, eb.KERNELS, card)
+    phase("11/12 end-to-end RoBERTa-base MLM")
+    mlm = phase_mlm(torch, eb, eb.KERNELS, card)
+    phase("12/12 encoder numerics")
+    phase_encoder_numerics(torch, np, eb, eb.KERNELS)
 
     record = {"kernels": [
         {"name": "paged_decode", "route": "cuda",
@@ -555,6 +919,19 @@ def main():
          "source": "vyomai_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "vyomai_tpu/ops/flash_attention.py:411",
          "launches": trained["flash_bwd_dkv"], **k23["flash_bwd_dkv"]},
+        {"name": "short_attention_fwd", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/short_attention.cu",
+         "replaces": "vyomai_tpu/ops/short_attention.py:96",
+         "launches": mlm["short_attention_fwd"], **k567["K5"]},
+        {"name": "short_attention_qkv_fwd", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/short_attention.cu",
+         "replaces": "vyomai_tpu/ops/short_attention.py:207",
+         "launches": vit["short_attention_qkv_fwd"], **k567["K6"]},
+        {"name": "short_attention_bwd", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/short_attention.cu",
+         "replaces": "vyomai_tpu/ops/short_attention.py:309",
+         "launches": vit["short_attention_bwd"]
+         + mlm["short_attention_bwd"], **k567["K7"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

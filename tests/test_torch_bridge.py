@@ -15,7 +15,7 @@ import torch
 import vyomai_tpu as vt
 import vyomai_tpu_torch as tt
 from vyomai_tpu_torch.interop import (decoder_params_from_jax,
-                                      decoder_tree_from_torch,
+                                      tree_from_torch,
                                       params_from_jax)
 
 torch.set_num_threads(1)
@@ -80,7 +80,7 @@ def test_bridge_round_trip(tie):
     params = vt.ModelForCausalLM(cfg).init(jax.random.PRNGKey(0),
                                            dtype=jnp.float32)
     tree = jax.tree_util.tree_map(np.asarray, params)
-    model = params_from_jax(tree, tcfg)
+    model = params_from_jax(tree, tcfg, device="cpu")
     assert model.dtype == torch.float32 and len(model.layers) == 2
     assert (model.lm_head is None) == tie
     lp = tree["layers"]
@@ -116,8 +116,10 @@ def test_init_uses_only_its_generator():
                         num_key_value_heads=1, head_dim=16,
                         max_position_embeddings=32)
     state = torch.get_rng_state()
-    a = tt.ModelForCausalLM(cfg).init(torch.Generator().manual_seed(5))
-    b = tt.ModelForCausalLM(cfg).init(torch.Generator().manual_seed(5))
+    a = tt.ModelForCausalLM(cfg, device="cpu").init(
+        torch.Generator().manual_seed(5))
+    b = tt.ModelForCausalLM(cfg, device="cpu").init(
+        torch.Generator().manual_seed(5))
     assert torch.equal(torch.get_rng_state(), state)
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
@@ -129,7 +131,7 @@ def test_init_uses_only_its_generator():
 @pytest.mark.parametrize("pe,at", [("rope", "gqa"), ("absolute", None),
                                    ("sinusoidal", "gqa")])
 def test_decoder_bridge_round_trip(pe, at):
-    """``decoder_params_from_jax`` then ``decoder_tree_from_torch`` gives
+    """``decoder_params_from_jax`` then ``tree_from_torch`` gives
     the JAX tree back bit-exact: same keys, shapes, dtypes and values."""
     cfg = vt.EncoderConfig(hidden_size=64, num_attention_heads=4,
                            num_key_value_heads=2, num_hidden_layers=2,
@@ -139,12 +141,12 @@ def test_decoder_bridge_round_trip(pe, at):
     params = vt.DecoderModel(cfg, pos_embedding_type=pe,
                              attention_type=at).init(jax.random.PRNGKey(1))
     tree = jax.tree_util.tree_map(np.asarray, params)
-    model = decoder_params_from_jax(tree, tcfg, pe, at)
+    model = decoder_params_from_jax(tree, tcfg, pe, at, device="cpu")
     assert model.dtype == torch.float32 and len(model.layers) == 2
     np.testing.assert_array_equal(
         model.layers[1].attention.key.weight.detach().numpy(),
         tree["layers"]["attention"]["key"]["kernel"][1].T)
-    back = decoder_tree_from_torch(model)
+    back = tree_from_torch(model)
     want = dict(jax.tree_util.tree_leaves_with_path(tree))
     got = jax.tree_util.tree_leaves_with_path(back)
     assert len(got) == len(want)

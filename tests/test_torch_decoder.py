@@ -79,7 +79,7 @@ def test_logits_match_jax_fp64(pe, at):
         want_logits = np.asarray(jout.logits)
         want_hidden = np.asarray(jout.hidden_state)
     tmodel = decoder_params_from_jax(_np_tree(params, np.float64), TCFG, pe,
-                                     at)
+                                     at, device="cpu")
     assert tmodel.dtype == torch.float64
     with torch.no_grad():
         out = tmodel(torch.from_numpy(ids).long(), torch.from_numpy(mask))
@@ -96,7 +96,7 @@ def test_argmax_matches_jax_fp32(pe, at):
     want = np.asarray(model.apply(params, jnp.asarray(ids),
                                   jnp.asarray(mask)).logits)
     tmodel = decoder_params_from_jax(_np_tree(params, np.float32), TCFG, pe,
-                                     at)
+                                     at, device="cpu")
     with torch.no_grad():
         got = tmodel(torch.from_numpy(ids).long(),
                      torch.from_numpy(mask)).logits.numpy()
@@ -109,7 +109,7 @@ def test_argmax_matches_jax_fp32(pe, at):
 
 def _torch_model(pe="rope", at="gqa", remat=False, dtype=torch.float64):
     cfg = TCFG.replace(hidden_dropout_prob=0.1)
-    m = tt.DecoderModel(cfg, pe, at, remat=remat, dtype=dtype)
+    m = tt.DecoderModel(cfg, pe, at, remat=remat, device="cpu", dtype=dtype)
     return m.init(torch.Generator().manual_seed(4))
 
 
@@ -174,15 +174,15 @@ def test_unported_options_raise():
     ids = torch.ones(1, 4, dtype=torch.long)
     model = _torch_model()
     with pytest.raises(NotImplementedError):
-        tt.DecoderModel(TCFG, "rope", "gqa", remat="dots")
+        tt.DecoderModel(TCFG, "rope", "gqa", remat="dots", device="cpu")
     with pytest.raises(NotImplementedError):
         model(ids, cache={})
     with pytest.raises(NotImplementedError):
         model(ids, segment_ids=ids)
     with pytest.raises(NotImplementedError):
         model.generate(ids)
-    with pytest.raises(NotImplementedError):
-        set_sdpa_impl("short")
+    with pytest.raises(ValueError):
+        set_sdpa_impl("nope")
     with pytest.raises(ValueError):
         model(ids, deterministic=False)
 
@@ -191,7 +191,7 @@ def test_unported_options_raise():
 def test_param_count_and_init_match_jax(pe, at):
     _, params = _jax(pe, at)
     n_jax = sum(x.size for x in jax.tree_util.tree_leaves(params))
-    model = tt.DecoderModel(TCFG, pe, at).init(
+    model = tt.DecoderModel(TCFG, pe, at, device="cpu").init(
         torch.Generator().manual_seed(0))
     assert sum(p.numel() for p in model.parameters()) == n_jax
     assert torch.all(model.word_embeddings.weight[TCFG.pad_token_id] == 0)

@@ -51,7 +51,7 @@ def _np_tree(params, dtype=None):
 
 @pytest.fixture(scope="module")
 def torch_model(jax_model):
-    return params_from_jax(_np_tree(jax_model[1]), TCFG)
+    return params_from_jax(_np_tree(jax_model[1]), TCFG, device="cpu")
 
 
 # -- pool ops -----------------------------------------------------------------
@@ -138,7 +138,8 @@ def _as_torch(arrays):
 
 def test_prefill_decode_logits_fp64(jax_model):
     model, params = jax_model
-    tmodel = params_from_jax(_np_tree(params, np.float64), TCFG)
+    tmodel = params_from_jax(_np_tree(params, np.float64), TCFG,
+                             device="cpu")
     rng = np.random.default_rng(1)
     p0 = rng.integers(0, 512, 7).tolist()
     p1 = rng.integers(0, 512, 10).tolist()
@@ -152,7 +153,8 @@ def test_prefill_decode_logits_fp64(jax_model):
         jparams = jax.tree_util.tree_map(
             lambda x: jnp.asarray(np.asarray(x, np.float64)), params)
         jpool = jpm.init_pool(QCFG, NB, BS, dtype=jnp.float64)
-        tpool = tpm.init_pool(TCFG, NB, BS, dtype=torch.float64)
+        tpool = tpm.init_pool(TCFG, NB, BS, dtype=torch.float64,
+                              device="cpu")
         for lanes, t_pad in steps:
             arrays = _prefill_inputs(lanes, t_pad)
             jl, jpool = jpm.prefill(model, False, jparams, jpool,
@@ -198,7 +200,7 @@ def test_decode_horizon_greedy_fp32(jax_model, torch_model):
         jl, jpool = jpm.prefill(model, False, params,
                                 jpm.init_pool(QCFG, NB, BS, jnp.float32),
                                 *map(jnp.asarray, arrays))
-    tpool = tpm.init_pool(TCFG, NB, BS, dtype=torch.float32)
+    tpool = tpm.init_pool(TCFG, NB, BS, dtype=torch.float32, device="cpu")
     tl = tpm.prefill(torch_model, tpool, *_as_torch(arrays))
     first = np.argmax(np.asarray(jl), -1).astype(np.int32)
     assert first[:2].tolist() == tl.argmax(-1)[:2].tolist()

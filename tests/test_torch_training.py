@@ -28,7 +28,7 @@ from vyomai_tpu.training import make_train_step as j_make_train_step
 import vyomai_tpu_torch as tt
 from vyomai_tpu_torch import bench
 from vyomai_tpu_torch.interop import (decoder_params_from_jax,
-                                      decoder_tree_from_torch)
+                                      tree_from_torch)
 from vyomai_tpu_torch.layers.attention import set_sdpa_impl
 from vyomai_tpu_torch.ops.fused import cross_entropy, lm_head_ce_loss
 from vyomai_tpu_torch.training import (Trainer, create_train_state,
@@ -133,11 +133,11 @@ def test_bench_losses_and_grads_match_jax_fp64(pe, at, loss):
         jgrads = jax.tree_util.tree_map(np.asarray, jgrads)
     tree = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64),
                                   params)
-    tmodel = decoder_params_from_jax(tree, TCFG, pe, at)
+    tmodel = decoder_params_from_jax(tree, TCFG, pe, at, device="cpu")
     tloss, _ = _torch_losses(16)[loss](tmodel, _tb(batch))
     tloss.backward()
     assert abs(float(tloss.detach()) - jloss) < 1e-10
-    grads = decoder_tree_from_torch(
+    grads = tree_from_torch(
         tmodel, {n: p.grad for n, p in tmodel.named_parameters()})
     _assert_tree_close(grads, jgrads, GRAD_RTOL_OF_MAX)
     pad = CFG.pad_token_id
@@ -163,11 +163,12 @@ def test_flash_route_matches_jax_flash_fp32():
     (jloss, _), jgrads = jax.value_and_grad(
         _jax_losses(model, CFG)["fused"], has_aux=True)(params, jb)
     tmodel = decoder_params_from_jax(
-        jax.tree_util.tree_map(np.asarray, params), TCFG, "rope", "gqa")
+        jax.tree_util.tree_map(np.asarray, params), TCFG, "rope", "gqa",
+        device="cpu")
     tloss, _ = _torch_losses(16)["fused"](tmodel, _tb(batch))
     tloss.backward()
     assert abs(float(tloss.detach()) - float(jloss)) < 1e-5
-    grads = decoder_tree_from_torch(
+    grads = tree_from_torch(
         tmodel, {n: p.grad for n, p in tmodel.named_parameters()})
     _assert_tree_close(grads, jax.tree_util.tree_map(np.asarray, jgrads),
                        1e-4)   # fp32 reduction order through 2 layers
@@ -257,7 +258,8 @@ def test_three_adamw_steps_match_optax_fp64():
               weight_decay=0.01)
     tree = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64),
                                   params)
-    tmodel = decoder_params_from_jax(tree, TCFG, "absolute", "gqa")
+    tmodel = decoder_params_from_jax(tree, TCFG, "absolute", "gqa",
+                                     device="cpu")
     topt = make_optimizer(1e-2, **kw)
     tstate = create_train_state(tmodel, topt)
     tstep = make_train_step(bench.naive_loss, topt)
@@ -278,7 +280,7 @@ def test_three_adamw_steps_match_optax_fp64():
             assert abs(float(tm["grad_norm"]) - float(jm["grad_norm"])) \
                 < 1e-7 * float(jm["grad_norm"])
             assert float(jm["grad_norm"]) > 1.0
-            _assert_tree_close(decoder_tree_from_torch(tmodel),
+            _assert_tree_close(tree_from_torch(tmodel),
                                jax.tree_util.tree_map(np.asarray,
                                                       jstate.params),
                                PARAM_RTOL_OF_MAX, floor=PARAM_FLOOR)
@@ -294,7 +296,7 @@ def test_grad_accum_matches_full_batch():
     batch = {"ids": ids, "mask": torch.ones_like(ids)}
     states, metrics = [], []
     for accum in (1, 4):
-        model = tt.DecoderModel(TCFG, "rope").init(
+        model = tt.DecoderModel(TCFG, "rope", device="cpu").init(
             torch.Generator().manual_seed(0))
         opt = make_optimizer(1e-2)
         state = create_train_state(model, opt)
@@ -313,7 +315,7 @@ def test_grad_accum_matches_full_batch():
 
 def test_trainer_fit_writes_jsonl(tmp_path):
     path = tmp_path / "metrics.jsonl"
-    model = tt.DecoderModel(TCFG, "rope", "gqa").init(
+    model = tt.DecoderModel(TCFG, "rope", "gqa", device="cpu").init(
         torch.Generator().manual_seed(0))
     batch = _tb(_batch(4))
 

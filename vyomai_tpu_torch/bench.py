@@ -121,53 +121,39 @@ _KINDS = (("K1 flash_fwd", ("flash_fwd_kernel",)),
           ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
 
 
-def _kind(name: str) -> str:
+def _kind(name: str, kinds=_KINDS) -> str:
     low = name.lower()
-    for kind, keys in _KINDS:
+    for kind, keys in kinds:
         if any(key in low for key in keys):
             return kind
     return "other"
 
 
-def step_profile(*, steps: int = 5, warmup: int = 3, config=CFG,
-                 batch: int = BATCH, seq: int = SEQ, device="cuda") -> dict:
-    """Where the fused step's time goes: the device kernels' summed time
-    per step by kind (``_KINDS``), from a ``torch.profiler`` window over
-    ``steps`` steps, against the step time of an unprofiled window of as
-    many steps just before it (CUDA events). The idle share is what the
-    kernels leave of the unprofiled step (one stream, so kernels do not
-    overlap); the profiled window is longer, by the profiler's own host
-    cost, and is reported beside it."""
+def device_split(run, *, steps: int, kinds=_KINDS, device="cuda") -> dict:
+    """Where a step's time goes. ``run(n)`` runs ``n`` steps; a window of
+    ``steps`` steps is timed unprofiled (CUDA events), then one is traced
+    with ``torch.profiler``, whose device kernels' time per step is summed
+    by kind (``kinds``: (label, name fragments) pairs, the rest "other").
+    The idle share is what the kernels leave of the unprofiled step (one
+    stream, so kernels do not overlap); the profiled window is longer, by
+    the profiler's own host cost, and is reported beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    set_sdpa_impl("flash")
-    try:
-        model = build(config, device=device)
-        opt = make_optimizer(1e-4)
-        step = make_train_step(fused_loss, opt)
-        state = create_train_state(model, opt)
-        data = make_batch(config, batch, seq, device=device)
-        for _ in range(warmup):
-            state, _ = step(state, data)
-        windows = []
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        for traced in (False, True):
-            torch.cuda.synchronize(device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if traced:
-                prof.start()
-            start.record()
-            for _ in range(steps):
-                state, _ = step(state, data)
-            end.record()
-            torch.cuda.synchronize(device)
-            if traced:
-                prof.stop()
-            windows.append(start.elapsed_time(end) / steps)
-    finally:
-        set_sdpa_impl("auto")
+    windows = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for traced in (False, True):
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if traced:
+            prof.start()
+        start.record()
+        run(steps)
+        end.record()
+        torch.cuda.synchronize(device)
+        if traced:
+            prof.stop()
+        windows.append(start.elapsed_time(end) / steps)
     by_kind, by_name = {}, {}
     for evt in prof.key_averages():
         # host ops carry their kernels' device time, and a user annotation
@@ -175,7 +161,7 @@ def step_profile(*, steps: int = 5, warmup: int = 3, config=CFG,
         if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
             continue
         ms = evt.self_device_time_total / 1e3 / steps
-        kind = _kind(evt.key)
+        kind = _kind(evt.key, kinds)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
         by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
     busy = sum(by_kind.values())
@@ -185,6 +171,27 @@ def step_profile(*, steps: int = 5, warmup: int = 3, config=CFG,
             "busy_ms_per_step": busy,
             "idle_share": 1.0 - busy / windows[0],
             "top_kernels_ms_per_step": {k[:100]: v for k, v in top}}
+
+
+def step_profile(*, steps: int = 5, warmup: int = 3, config=CFG,
+                 batch: int = BATCH, seq: int = SEQ, device="cuda") -> dict:
+    """Where the fused step's time goes (``device_split`` by ``_KINDS``)."""
+    set_sdpa_impl("flash")
+    try:
+        model = build(config, device=device)
+        opt = make_optimizer(1e-4)
+        step = make_train_step(fused_loss, opt)
+        state = create_train_state(model, opt)
+        data = make_batch(config, batch, seq, device=device)
+
+        def run(n):
+            for _ in range(n):
+                step(state, data)
+
+        run(warmup)
+        return device_split(run, steps=steps, device=device)
+    finally:
+        set_sdpa_impl("auto")
 
 
 def model_flops_per_token(n_params: int, config=CFG, seq: int = SEQ):

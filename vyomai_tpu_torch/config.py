@@ -1,6 +1,7 @@
 """Configuration dataclasses for the PyTorch port.
 
-``EncoderConfig`` and ``QwenConfig`` carry the same fields and defaults as
+``EncoderConfig``, ``VisionConfig`` and ``QwenConfig`` carry the same
+fields and defaults as
 their counterparts in ``vyomai_tpu.config`` (``QwenConfig``: Qwen3-0.6B's
 published ``config.json``), so one config value describes the model in
 both packages. Qwen features the port does not run yet raise
@@ -36,6 +37,36 @@ class EncoderConfig:
         return self.hidden_size // self.num_attention_heads
 
     def replace(self, **kw) -> "EncoderConfig":
+        return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    """ViT config (ViT-base/16 widths at 224 px, 4 layers)."""
+
+    image_size: Tuple[int, int] = (224, 224)
+    patch_size: Tuple[int, int] = (16, 16)
+    num_channels: int = 3
+    hidden_size: int = 768
+    num_attention_heads: int = 12
+    num_hidden_layers: int = 4
+    hidden_dropout_prob: float = 0.1
+    intermediate_size: int = 3072
+    layer_norm_eps: float = 1e-05
+    hidden_act: str = "gelu"
+    attention_bias: bool = True
+    initializer_range: float = 0.02
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size[0] // self.patch_size[0]) * (
+            self.image_size[1] // self.patch_size[1])
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    def replace(self, **kw) -> "VisionConfig":
         return replace(self, **kw)
 
 

@@ -1,13 +1,16 @@
 """Weight bridge between the JAX package's param trees and the port's
 modules.
 
-``params_from_jax`` (``vyomai_tpu.models.qwen.ModelForCausalLM``) and
-``decoder_params_from_jax`` (``vyomai_tpu.models.decoder.DecoderModel``)
-take params already converted to numpy (``jax.tree_util.tree_map(
-np.asarray, params)``; this module never imports jax), unstack the
-``[L, ...]`` layer stacks and transpose the ``[in, out]`` kernels into
-``nn.Linear``'s ``[out, in]``. ``decoder_tree_from_torch`` is the inverse,
-for parameters or any tensors named like them (gradients).
+``params_from_jax`` (``vyomai_tpu.models.qwen.ModelForCausalLM``),
+``decoder_params_from_jax`` (``DecoderModel``), ``encoder_params_from_jax``
+(``EncoderModel`` and ``EncoderForMaskedLM``) and ``vit_params_from_jax``
+(``Vit``) take params already converted to numpy
+(``jax.tree_util.tree_map(np.asarray, params)``; this module never imports
+jax), unstack the ``[L, ...]`` layer stacks and transpose the ``[in, out]``
+kernels into ``nn.Linear``'s ``[out, in]``. ``tree_from_torch`` is the
+inverse for the decoder, encoder and ViT models, for parameters or any
+tensors named like them (gradients). The loading functions put the model
+on the card unless ``device`` names another.
 """
 
 import numpy as np
@@ -15,7 +18,9 @@ import torch
 from torch import nn
 
 from ..models.decoder import DecoderModel
+from ..models.encoder import EncoderForMaskedLM, EncoderModel
 from ..models.qwen import ModelForCausalLM
+from ..models.vision import Vit
 
 _LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
             "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
@@ -80,22 +85,21 @@ def _jax_path(model: nn.Module, name: str):
                         nn.Linear) and leaf == "weight"
     if linear:
         leaf = "kernel"
-    if parts[0] == "layers":
-        return ["layers", *parts[2:-1], leaf], int(parts[1]), linear
+    if "layers" in parts:
+        i = parts.index("layers")
+        return [*parts[:i + 1], *parts[i + 2:-1], leaf], int(parts[i + 1]), \
+            linear
     return [*parts[:-1], leaf], None, linear
 
 
+def _dtype_of(tree, path: str):
+    x = np.asarray(_get(tree, path))
+    return torch.from_numpy(np.empty(0, x.dtype)).dtype
+
+
 @torch.no_grad()
-def decoder_params_from_jax(tree, config, pos_embedding_type="absolute",
-                            attention_type=None, *, device=None,
-                            dtype=None) -> DecoderModel:
-    """Build a ``DecoderModel`` holding the JAX params ``tree`` (numpy
-    leaves). ``dtype`` defaults to the token table's dtype."""
-    if dtype is None:
-        emb = np.asarray(tree["word_embeddings"]["weight"])
-        dtype = torch.from_numpy(np.empty(0, emb.dtype)).dtype
-    model = DecoderModel(config, pos_embedding_type, attention_type,
-                         device=device, dtype=dtype)
+def _load(model: nn.Module, tree) -> nn.Module:
+    """Copy every parameter of ``model`` from the JAX tree."""
     for name, p in model.named_parameters():
         keys, layer, linear = _jax_path(model, name)
         x = np.asarray(_get(tree, ".".join(keys)))
@@ -105,10 +109,46 @@ def decoder_params_from_jax(tree, config, pos_embedding_type="absolute",
     return model
 
 
-def decoder_tree_from_torch(model: DecoderModel, tensors=None) -> dict:
+@torch.no_grad()
+def decoder_params_from_jax(tree, config, pos_embedding_type="absolute",
+                            attention_type=None, *, device=None,
+                            dtype=None) -> DecoderModel:
+    """Build a ``DecoderModel`` holding the JAX params ``tree`` (numpy
+    leaves). ``dtype`` defaults to the token table's dtype."""
+    dtype = dtype or _dtype_of(tree, "word_embeddings.weight")
+    return _load(DecoderModel(config, pos_embedding_type, attention_type,
+                              device=device, dtype=dtype),
+                 tree)
+
+
+@torch.no_grad()
+def encoder_params_from_jax(tree, config, pos_embedding_type="absolute",
+                            attention_type=None, *, device=None,
+                            dtype=None):
+    """Build an ``EncoderForMaskedLM`` (a tree with ``encoder`` and
+    ``lm_head``) or an ``EncoderModel`` holding the JAX params ``tree``
+    (numpy leaves). ``dtype`` defaults to the token table's dtype."""
+    mlm = "lm_head" in tree
+    table = ("encoder." if mlm else "") + "word_embeddings.weight"
+    cls = EncoderForMaskedLM if mlm else EncoderModel
+    return _load(cls(config, pos_embedding_type, attention_type,
+                     device=device, dtype=dtype or _dtype_of(tree, table)),
+                 tree)
+
+
+@torch.no_grad()
+def vit_params_from_jax(tree, config, pos_embedding_type="absolute", *,
+                        device=None, dtype=None) -> Vit:
+    """Build a ``Vit`` holding the JAX params ``tree`` (numpy leaves).
+    ``dtype`` defaults to the CLS token's dtype."""
+    return _load(Vit(config, pos_embedding_type, device=device,
+                     dtype=dtype or _dtype_of(tree, "cls_token")), tree)
+
+
+def tree_from_torch(model: nn.Module, tensors=None) -> dict:
     """The JAX param tree (numpy leaves, layers stacked on ``[L]``) of
-    ``model``'s parameters, or of ``tensors`` (a dict keyed by parameter
-    name, e.g. gradients)."""
+    ``model``'s parameters (a decoder, encoder or ViT model), or of
+    ``tensors`` (a dict keyed by parameter name, e.g. gradients)."""
     if tensors is None:
         tensors = dict(model.named_parameters())
     tree, stacks = {}, {}

@@ -1,5 +1,5 @@
 """Positional embeddings (counterpart of ``vyomai_tpu.layers.positional``):
-learned absolute, sinusoidal and RoPE tables. RoPE scaling is not ported
+learned absolute, sinusoidal, RoPE and ViT tables. RoPE scaling is not ported
 yet.
 
 The constant tables (sinusoidal, RoPE angles) are computed in fp32 on the
@@ -87,3 +87,17 @@ def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor,
     cos = torch.cos(emb).to(q.dtype)[:, None]
     sin = torch.sin(emb).to(q.dtype)[:, None]
     return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+
+
+# -- ViT absolute (learned ``[1, P+1, D]``) ------------------------------------------
+
+@torch.no_grad()
+def vit_absolute_init_(weight: torch.Tensor, generator: torch.Generator):
+    """Standard-normal table (the JAX ``vit_absolute_init``: unscaled)."""
+    weight.normal_(0.0, 1.0, generator=generator)
+
+
+def vit_absolute_add(weight: torch.Tensor, img_seq: torch.Tensor
+                     ) -> torch.Tensor:
+    """``img_seq [B, n, D]`` plus the table's first ``n`` rows."""
+    return img_seq + weight[:, :img_seq.shape[1]]

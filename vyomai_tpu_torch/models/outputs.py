@@ -5,6 +5,15 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 
+class EncoderOutput(NamedTuple):
+    logits: torch.Tensor
+
+
+class MLMOutput(NamedTuple):
+    hidden_state: torch.Tensor
+    logits: torch.Tensor
+
+
 class CLMOutput(NamedTuple):
     hidden_state: torch.Tensor
     logits: torch.Tensor

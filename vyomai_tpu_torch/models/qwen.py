@@ -12,6 +12,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from ..config import QwenConfig
+from ..core.device import resolve_device
 from ..layers import positional as pos
 from ..layers.modern import ModernLayer, RMSNorm
 
@@ -20,7 +21,7 @@ class ModelForCausalLM(nn.Module):
     def __init__(self, config: QwenConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        device = torch.device("cpu" if device is None else device)
+        device = resolve_device(device)
         self.config = config
         self.embed_tokens = skip_init(nn.Embedding, config.vocab_size,
                                       config.hidden_size, device=device,

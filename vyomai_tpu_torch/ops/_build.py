@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the kernels' launchers (each returns cudaGetLastError())
 _SIGNATURES = {
     # q, pool, block_tables, seq_lens, out, B, H, H_kv, D, BS, MAXB, W,
@@ -38,6 +38,14 @@ _SIGNATURES = {
     "flash_bwd_dq_launch": [_P] * 8 + [_I] * 12 + [_P],
     # q, k, v, bias, dout, lse, delta, dk, dv, then as flash_bwd_dq_launch
     "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 12 + [_P],
+    # q, k, v, bias, bias batch stride, out, stats, B, H, L, D, q/k/v
+    # strides (b, h, row), out strides (b, h, row), is_bf16, stream
+    "short_fwd_launch": [_P] * 4 + [_LL] + [_P] * 2 + [_I] * 4 + [_LL] * 6
+    + [_I, _P],
+    # q, k, v, bias, bias batch stride, dout, stats, delta, dq, dk, dv, B,
+    # H, L, D, q/k/v/dq/dk/dv strides, dout strides, is_bf16, stream
+    "short_bwd_launch": [_P] * 4 + [_LL] + [_P] * 6 + [_I] * 4 + [_LL] * 6
+    + [_I, _P],
 }
 
 _LIB = None

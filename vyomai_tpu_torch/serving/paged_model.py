@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..core import nn as cnn
+from ..core.device import resolve_device
 from ..core.masks import NEG_INF
 from ..generation.sampling import _min_p_mask, _top_p_mask
 from ..layers.modern import swiglu_apply
@@ -31,13 +32,14 @@ from ..ops.paged_decode import paged_decode
 
 def init_pool(config, num_blocks: int, block_size: int,
               dtype=torch.bfloat16, device=None) -> torch.Tensor:
-    """Combined K/V pool ``[L, NB, 2, BS, H_kv*D]`` (k row 0, v row 1)."""
+    """Combined K/V pool ``[L, NB, 2, BS, H_kv*D]`` (k row 0, v row 1), on
+    the card unless ``device`` names another."""
     if dtype not in (torch.bfloat16, torch.float32, torch.float64):
         raise NotImplementedError(f"pool dtype {dtype}: only float pools "
                                   "are ported")
     width = config.num_key_value_heads * config.head_dim
     return torch.zeros((config.num_hidden_layers, num_blocks, 2, block_size,
-                        width), dtype=dtype, device=device)
+                        width), dtype=dtype, device=resolve_device(device))
 
 
 def _head(model, h: torch.Tensor) -> torch.Tensor:
