@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, decoder-training and encoder-family
-paths once on one NVIDIA card.
+"""Drive the PyTorch port's serving, decoder-training, encoder-family and
+quantized-serving paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -35,10 +35,22 @@ and exits non-zero):
 11. end-to-end RoBERTa-base MLM (12 layers, bf16, right-padded) at S=128
     B=64 and S=512 B=16 on both routes (K5/K7 on "auto");
 12. encoder numerics: ViT and MLM at 2 layers and fp32, loss and every
-    gradient on the card (kernels) against the CPU (plain versions).
+    gradient on the card (kernels) against the CPU (plain versions);
+13. K8 (int8, kn and nk), K9 (int4 fold and split) and K10 (stream and
+    noscale) against their plain versions at Qwen3-0.6B's decode shapes,
+    the tied head and a prefill shape, bf16 and fp32; then the K10 path
+    (``quant_bench.int4_attribution``);
+14. K4's int8 and int4 pool variants against their plain versions at
+    phase 2's shapes;
+15. end-to-end quantized serving: phase 5's workload and seeded weights
+    through ``quantize_model``, int8 weights + int8 pool, then int4
+    weights + int4 pool; each serving run (5 and 15) also traces one
+    decode tick for its device time per step;
+16. quantized numerics: phase 6's method for int8 + int8 pool, int4 +
+    int4 pool and W8A8, quantized on the CPU and copied to the card.
 
-Each end-to-end path (5, 7, 10, 11) zeroes every kernel's launch count
-just before it and reads the counts just after. The line before the last holds the
+Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15) zeroes its
+kernels' launch counts just before it and reads the counts just after. The line before the last holds the
 kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -372,8 +384,58 @@ def phase_flash_bwd(torch, fa, flush, card):
     return main
 
 
-def phase_serving(torch, np, tt, kernels, card):
-    """24 requests at Qwen3-0.6B width through the engine."""
+def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
+    """One decode tick (``steps`` steps, the engine's horizon) of all
+    ``max_batch`` lanes at position ``ctx``, over blocks of the engine's
+    pool: (device kernel ms per step from a ``torch.profiler`` trace of the
+    tick, wall ms per step of the same tick unprofiled, the three kernels
+    with the most device time). The device figure is None when the
+    profiler saw no device time."""
+    b, bs, maxb = eng.max_batch, eng.block_size, eng.max_blocks_per_seq
+    need = -(-(ctx + steps) // bs)
+    dev = eng.device
+    tables = torch.full((b, maxb), -1, dtype=torch.int32, device=dev)
+    tables[:, :need] = torch.arange(b * need, dtype=torch.int32,
+                                    device=dev).reshape(b, need)
+    toks = torch.arange(b, device=dev) + 7
+    pos = torch.full((b,), ctx, device=dev)
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    budget = torch.full((b,), steps, dtype=torch.int32, device=dev)
+
+    def tick():
+        pm.decode_horizon(eng.model, eng.pool, toks, pos, tables, live,
+                          steps, budget=budget)
+
+    tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps   # unprofiled
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        tick()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
+    total = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
+    return ((total / steps) if total > 0 else None, wall,
+            [(k[:60], round(v / steps, 4)) for k, v in top])
+
+
+def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
+                  quant=None, pool_dtype=None, reference=None):
+    """24 requests at Qwen3-0.6B width through the engine: bf16 weights
+    and pool (phase 5), or the same seeded weights through
+    ``quantize_model(**quant)`` with a ``pool_dtype`` pool (phase 15).
+    ``reference``: phase 5's tokens, to report the share that agree."""
     dev = torch.device("cuda")
     cfg = tt.QwenConfig()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -382,13 +444,16 @@ def phase_serving(torch, np, tt, kernels, card):
     model.init(gen)
     model.requires_grad_(False)
     n_params = sum(p.numel() for p in model.parameters())
+    if quant is not None:
+        tt.quantize_model(model, **quant)
     eng = tt.ContinuousBatchEngine(
         model, num_blocks=1024, block_size=16, max_batch=16,
         max_blocks_per_seq=64, max_new_tokens=64, eos_token_id=-1,
-        decode_horizon=8, dtype=torch.bfloat16, device=dev)
+        decode_horizon=8, dtype=pool_dtype or torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    phase(f"engine ready: {n_params} params, pool "
-          f"{eng.pool.numel() * eng.pool.element_size()} bytes "
+    m0 = eng.metrics()
+    phase(f"engine ready ({label}): {n_params} params, weights "
+          f"{m0['weight_bytes']} bytes, pool {m0['pool_bytes']} bytes "
           f"({time.perf_counter() - t0:.1f} s)")
     rng = np.random.default_rng(0)
     wave1 = [rng.integers(0, cfg.vocab_size, rng.integers(300, 501)).tolist()
@@ -415,25 +480,41 @@ def phase_serving(torch, np, tt, kernels, card):
           f"a kernel never ran on the main path: {launches}")
     check(m["cached_prompt_tokens"] > 0, "wave 2 never hit the prefix cache")
     tokens = sum(len(t) for t in outs.values())
-    phase(f"serving Qwen3-0.6B width bf16: {tokens} tokens in {wall:.3f} s "
-          f"= {tokens / wall:.1f} tok/s, mean TTFT {m['ttft_mean_s']:.4f} s, "
-          f"prefix hits {m['radix_hits']} ({m['cached_prompt_tokens']} "
-          f"cached prompt tokens), prefill calls {m['prefill_calls']}, "
-          f"decode ticks {m['decode_ticks']}, launches {launches} [{card}]")
+    agree = ""
+    if reference is not None:
+        same = sum(a == b for i in outs for a, b in zip(outs[i],
+                                                        reference[i]))
+        agree = f", greedy tokens agreeing with bf16 {same / tokens:.4f}"
+    dev_ms, wall_ms, top = decode_tick_ms(torch, pm, eng)
+    dev_txt = "not measured" if dev_ms is None else \
+        f"{dev_ms:.4f} ms (idle {1 - dev_ms / wall_ms:.3f})"
+    phase(f"serving Qwen3-0.6B width {label}: {tokens} tokens in "
+          f"{wall:.3f} s = {tokens / wall:.1f} tok/s, mean TTFT "
+          f"{m['ttft_mean_s']:.4f} s, prefix hits {m['radix_hits']} "
+          f"({m['cached_prompt_tokens']} cached prompt tokens), prefill "
+          f"calls {m['prefill_calls']}, decode ticks {m['decode_ticks']}, "
+          f"weights {m['weight_bytes']} bytes, pool {m['pool_bytes']} bytes"
+          f"{agree}; one traced tick (B=16, ctx 500, 8 steps): device "
+          f"{dev_txt} per step, wall {wall_ms:.4f} ms per step, top "
+          f"kernels {top}; launches {launches} [{card}]")
     del eng, model
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "outs": outs, "device_ms": dev_ms}
 
 
-def phase_numerics(torch, np, tt, pm):
+def phase_numerics(torch, np, tt, pm, label="fp32", quant=None,
+                   pool_dtype=None, tol=2e-3, kernels=()):
     """2 layers, fp32: card vs CPU on a 520-token prompt, 8 decode steps
-    teacher-forced along the CPU's greedy tokens."""
+    teacher-forced along the CPU's greedy tokens. With ``quant`` the model
+    is quantized on the CPU and the same modules are copied to the card;
+    ``kernels`` must each launch on the card."""
+    import copy
     cfg = tt.QwenConfig(num_hidden_layers=2)
     cpu = tt.ModelForCausalLM(cfg, device="cpu", dtype=torch.float32)
     cpu.init(torch.Generator().manual_seed(3)).requires_grad_(False)
-    gpu = tt.ModelForCausalLM(cfg, device="cuda", dtype=torch.float32)
-    gpu.load_state_dict(cpu.state_dict())
-    gpu.requires_grad_(False)
+    if quant is not None:
+        tt.quantize_model(cpu, **quant)
+    gpu = copy.deepcopy(cpu).to("cuda")
     rng = np.random.default_rng(5)
     t, bs, maxb = 520, 16, 64
     prompt = rng.integers(0, cfg.vocab_size, t)
@@ -441,9 +522,12 @@ def phase_numerics(torch, np, tt, pm):
     pos = np.arange(t)
     pre = [prompt[None], pos[None], (table[0][pos // bs])[None],
            (pos % bs)[None], table, np.array([t]), np.array([t])]
-    logits = {}
+    logits, pools = {}, {}
+    for fn in kernels:
+        fn.launches = 0
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
-        pool = pm.init_pool(cfg, maxb, bs, dtype=torch.float32, device=dev)
+        pool = pools[dev] = pm.init_pool(
+            cfg, maxb, bs, dtype=pool_dtype or torch.float32, device=dev)
         arrays = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                   for a in pre]
         arrays[2] = arrays[2].int()
@@ -462,13 +546,74 @@ def phase_numerics(torch, np, tt, pm):
         logits[dev] = [s.float().cpu() for s in steps]
         if dev == "cpu":
             cpu_tokens = [int(s.argmax(-1)[0]) for s in steps[:-1]]
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    check(all(n > 0 for n in launches.values()),
+          f"numerics {label}: a kernel never ran on the card: {launches}")
     errs = [float((a - b).abs().max())
             for a, b in zip(logits["cpu"], logits["cuda"])]
-    tol = 2e-3
-    check(max(errs) <= tol, f"card vs CPU logits: max err {max(errs)}")
-    phase(f"numerics 2L fp32 prefill(520)+8 decode: per-step max |dlogit| "
-          f"{errs} (tol {tol}; fp32 reduction order of cuBLAS and the "
-          f"kernels vs the CPU)")
+    flips = ""
+    if pool_dtype is not None:   # quantized pools: entries rounded apart
+        kv_cpu, kv_gpu = (pm.pool_parts(pools[d])[0].cpu()
+                          for d in ("cpu", "cuda"))
+        flips = (f"; pool bytes differing card vs CPU "
+                 f"{int((kv_cpu != kv_gpu).sum())} of {kv_cpu.numel()}")
+    check(max(errs) <= tol, f"card vs CPU logits ({label}): max err "
+          f"{max(errs)} > {tol}")
+    phase(f"numerics 2L {label} prefill(520)+8 decode: per-step max "
+          f"|dlogit| {errs} (tol {tol}){flips}; launches {launches}")
+
+
+def phase_w8a8_linears(torch, np, tt, qm, pm):
+    """Every W8A8 linear of the 2-layer fp32 model (phase 16's), on the
+    inputs it saw in a CPU prefill of 520 tokens: card (``torch._int_mm``)
+    against CPU. The int32 sum is exact on both and the epilogue the same
+    fp32 ops; what may differ is an activation code that the two devices'
+    division rounds to either side of .5. So each output is held to 1e-6 of
+    the largest, plus, per flipped code of its row, the most one code can
+    move it: the row's scale times the largest dequantized weight."""
+    import copy
+    cfg = tt.QwenConfig(num_hidden_layers=2)
+    cpu = tt.ModelForCausalLM(cfg, device="cpu", dtype=torch.float32)
+    cpu.init(torch.Generator().manual_seed(3)).requires_grad_(False)
+    tt.quantize_model(cpu, bits=8, act_bits=8)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    seen = {}
+    hooks = [mod.register_forward_pre_hook(
+        lambda m, args, name=name: None if name in seen
+        else seen.__setitem__(name, args[0]))
+        for name, mod in cpu.named_modules()
+        if getattr(mod, "act_q", False)]
+    t, bs, maxb = 520, 16, 64
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, t))[None]
+    pos = torch.arange(t)[None]
+    table = torch.arange(maxb, dtype=torch.int32)[None]
+    pm.prefill(cpu, pm.init_pool(cfg, maxb, bs, dtype=torch.float32,
+                                 device="cpu"),
+               ids, pos, table[0][pos // bs].int(), pos % bs, table,
+               torch.tensor([t]), torch.tensor([t]))
+    for h in hooks:
+        h.remove()
+    check(len(seen) == 14, f"{len(seen)} W8A8 linears ran, not 14")
+    worst, flipped = 0.0, 0
+    for name, x in seen.items():
+        mod = cpu.get_submodule(name)
+        want = mod(x)
+        got = gpu.get_submodule(name)(x.cuda()).cpu()
+        q_cpu, xs = qm.quantize_activation(x)
+        flips = (q_cpu != qm.quantize_activation(x.cuda())[0].cpu()).sum(
+            dim=-1, keepdim=True)
+        flipped += int(flips.sum())
+        w_max = float((mod.weight_q.float().abs()
+                       * mod.scale[:, None]).max())
+        top = float(want.abs().max())
+        bound = flips * xs * w_max + 1e-6 * top
+        check(bool(torch.all((got - want).abs() <= bound)),
+              f"W8A8 {name}: card vs CPU beyond the bound")
+        worst = max(worst, float((got - want).abs().max()) / top)
+    phase(f"W8A8 linears on identical inputs (14, M={t}): card vs CPU "
+          f"within {worst:.3g} of each output's max; {flipped} activation "
+          f"codes rounded apart (each bounded as above)")
 
 
 def phase_training(torch, bench, kernels, card):
@@ -833,6 +978,187 @@ def phase_encoder_numerics(torch, np, eb, kernels, dev="cuda"):
         set_sdpa_impl("auto")
 
 
+def qm_atol(ref, dtype) -> float:
+    """Quantized matmul kernel vs plain on the same inputs: bf16 as
+    ``bf16_atol`` (one ulp of the output after the final cast); fp32 by
+    summation order over up to 3,072 fp32 products, 1e-5 of the largest
+    output."""
+    if str(dtype) == "torch.bfloat16":
+        return bf16_atol(ref)
+    return 1e-5 * float(ref.float().abs().max()) + 1e-5
+
+
+# (K, N) of Qwen3-0.6B's linears: q, k/v, o, gate/up, down
+QWEN3_LINEARS = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+                 (3072, 1024))
+QWEN3_HEAD = (1024, 151936)
+
+
+def phase_quant_matmul(torch, qm, qb, flush, card):
+    """K8 (kn and nk) at decode M=16 over every Qwen3-0.6B linear shape and
+    the tied head, and at prefill M=2,048 for 1024->3072; K9 fold and split
+    at the linear shapes (gs=128); K10 stream and noscale at M=8,
+    K=N=2,048; bf16 and fp32, each against its plain version, with the
+    dense bf16 ``torch.matmul`` (and ``torch._weight_int8pack_mm`` where it
+    runs) as library times. Then the K10 path: ``quant_bench``'s int4
+    attribution, counts zeroed before and read after."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []   # (kernel, label, m, k, n, dtype, variant)
+    for k, n in QWEN3_LINEARS + (QWEN3_HEAD,):
+        for dt in (bf, f32):
+            cases += [("K8", "decode", 16, k, n, dt, lay)
+                      for lay in ("kn", "nk")]
+    cases += [("K8", "prefill", 2048, 1024, 3072, dt, lay)
+              for dt in (bf, f32) for lay in ("kn", "nk")]
+    for k, n in QWEN3_LINEARS:
+        for dt in (bf, f32):
+            cases += [("K9", "decode", 16, k, n, dt, mode)
+                      for mode in ("fold", "split")]
+    cases += [("K10", "attribution", 8, 2048, 2048, dt, mode)
+              for dt in (bf, f32) for mode in ("stream", "noscale")]
+    weights, main, lib_seen = {}, {}, {}
+    for kern, label, m, k, n, dt, var in cases:
+        if (k, n) not in weights:
+            weights.clear()
+            w = torch.randn(k, n, device=dev, generator=g) * 0.02
+            q, s = qm.quantize_weight(w)
+            p, s4 = qm.quantize_weight_int4(w, group_size=128)
+            weights[(k, n)] = (q, s, p, s4)
+            del w
+        q, s, p, s4 = weights[(k, n)]
+        x = torch.randn(m, k, device=dev, generator=g).to(dt)
+        if kern == "K8":
+            wq = q if var == "kn" else q.t().contiguous()
+            fn = lambda: qm.int8_matmul(x, wq, s, w_layout=var)  # noqa
+            ref_fn = lambda: qm.int8_matmul_ref(x, wq, s, var)  # noqa
+            wbytes = nbytes(wq, s)
+        elif kern == "K9":
+            fn = lambda: qm.int4_matmul(x, p, s4, kernel=var)  # noqa
+            ref_fn = lambda: qm.int4_matmul_ref(x, p, s4, var)  # noqa
+            wbytes = nbytes(p, s4)
+        else:
+            row = qm.k10_scale_row(k, 128)
+            fn = lambda: qm.int4_attribution(  # noqa: E731
+                x, p, s4, mode=var, scale_row=row)
+            ref_fn = lambda: qm.int4_matmul_ref(x, p, s4, var, row)  # noqa
+            wbytes = nbytes(p) + n * 4
+        out = fn()
+        torch.cuda.synchronize()
+        ref = ref_fn()
+        err = float((out.float() - ref.float()).abs().max())
+        atol = qm_atol(ref, dt)
+        check(bool(torch.isfinite(out).all()) and err <= atol,
+              f"{kern} {var} {label} M={m} K={k} N={n} {dt}: max err {err} "
+              f"> {atol}")
+        ms = cuda_ms(fn, flush)
+        plain_ms = cuda_ms(ref_fn, flush)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, **bound(
+                       2 * m * k * n, nbytes(x, out) + wbytes, dt))
+        extra = ""
+        if dt == bf:
+            key = (m, k, n)
+            if key not in lib_seen:
+                # the dense time a quantized kernel must beat, and PyTorch's
+                # own int8 weight-only kernel where it runs here
+                w_bf = (q.float() * s).to(bf)
+                lib = cuda_ms(lambda: torch.matmul(x, w_bf), flush)
+                qt = q.t().contiguous()
+                try:
+                    pack = cuda_ms(lambda: torch._weight_int8pack_mm(
+                        x, qt, s.to(bf)), flush)
+                    pack_txt = f"{pack:.4f} ms"
+                except (RuntimeError, NotImplementedError) as e:
+                    pack_txt = f"none ({type(e).__name__}: {str(e)[:80]})"
+                lib_seen[key] = (lib, pack_txt)
+                del w_bf, qt
+            rec["library_ms"] = lib_seen[key][0]
+            extra = (f", bf16 matmul {lib_seen[key][0]:.4f} ms, "
+                     f"_weight_int8pack_mm {lib_seen[key][1]}")
+        phase(f"{kern} {var} {label} M={m} K={k} N={n} {str(dt)[6:]}: "
+              f"max_abs_err={err:.3g} (atol {atol:.3g}) kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}){extra} [{card}]")
+        if dt == bf and (
+                (kern == "K8" and (k, n) == QWEN3_HEAD and var == "nk")
+                or (kern == "K9" and (k, n) == (1024, 3072)
+                    and var == "fold")
+                or (kern == "K10" and var == "stream")):
+            main[kern] = rec
+        del x, out, ref
+    weights.clear()
+    torch.cuda.empty_cache()
+    qm.int4_attribution.launches = 0
+    att = qb.int4_attribution()
+    launches = {"int4_attribution": qm.int4_attribution.launches}
+    check(launches["int4_attribution"] > 0, "K10 never ran on its path")
+    phase(f"K10 path quant_bench.int4_attribution: {json.dumps(att)}; "
+          f"launches {launches} [{card}]")
+    return main, launches
+
+
+def phase_quant_decode(torch, pdm, pa, flush, card):
+    """K4's int8 and int4 variants at phase 2's shapes (B=16, H=16,
+    H_kv=8, BS=16, MAXB=64, D=128 and 64, ragged lengths, a dead lane, -1
+    table entries), pools written by ``write_kv`` from random rows."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    b, h, h_kv, bs, maxb = 16, 16, 8, 16, 64
+    nb = b * maxb
+    lens = [1, 16, 17, 100, 255, 256, 300, 511, 512, 513, 700, 999, 1023,
+            1024, 0, 1500]
+    main = {}
+    for kind in ("int8", "int4"):
+        for d, dtype in ((128, torch.bfloat16), (128, torch.float32),
+                         (64, torch.bfloat16)):
+            q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
+            width = h_kv * d // (2 if kind == "int4" else 1)
+            pool = torch.zeros(nb, 2, bs, width, dtype=torch.int8,
+                               device=dev)
+            sc = torch.ones((nb, 2, h_kv, bs) if kind == "int4"
+                            else (nb, 2, bs), device=dev)
+            rows = torch.randn(nb * bs, 2, h_kv, d, device=dev, generator=g)
+            pa.write_kv(pool, rows[:, 0], rows[:, 1],
+                        torch.arange(nb, device=dev).repeat_interleave(bs),
+                        torch.arange(bs, device=dev).repeat(nb), scales=sc)
+            del rows
+            bt = torch.randperm(nb, device=dev, generator=g).reshape(
+                b, maxb).int()
+            bt[3, 7:] = -1
+            sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            fn = lambda: pdm.paged_decode(q, pool, bt, sl, h_kv,  # noqa
+                                          scales=sc)
+            ref_fn = lambda: pdm.paged_attention_decode_ref(  # noqa: E731
+                q, pool, bt, sl, h_kv, sc)
+            out = fn()
+            torch.cuda.synchronize()
+            ref = ref_fn()
+            err = float((out.float() - ref.float()).abs().max())
+            atol = FP32_ATOL if dtype == torch.float32 else bf16_atol(ref)
+            check(err <= atol, f"K4 {kind} D={d} {dtype}: max err {err} > "
+                  f"{atol}")
+            check(bool(torch.all(out[14] == 0)), f"K4 {kind} dead lane != 0")
+            ms = cuda_ms(fn, flush)
+            plain_ms = cuda_ms(ref_fn, flush)
+            live = int(torch.clamp(sl.long(), max=maxb * bs).sum())
+            per_row = width + 4 * (h_kv if kind == "int4" else 1)
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, **bound(
+                           4 * d * h * live,
+                           nbytes(q, out, bt, sl) + 2 * live * per_row,
+                           dtype))
+            phase(f"K4 paged_decode_{kind} D={d} {str(dtype)[6:]}: "
+                  f"max_abs_err={err} (atol {atol}) kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}) [{card}]")
+            main.setdefault(kind, rec)
+            del q, pool, sc, out, ref
+    torch.cuda.empty_cache()
+    return main
+
+
 def main():
     check((ROOT / "vyomai_tpu_torch" / "csrc").is_dir(),
           "run from a checkout: vyomai_tpu_torch/ not found beside this "
@@ -841,7 +1167,7 @@ def main():
     import numpy as np
     import torch
 
-    phase("1/12 device and set-up")
+    phase("1/16 device and set-up")
     check(torch.cuda.is_available(), "no CUDA device: this script runs the "
           "port on an NVIDIA card and does not fall back to the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -857,6 +1183,7 @@ def main():
 
     import vyomai_tpu_torch as tt
     from vyomai_tpu_torch import bench
+    from vyomai_tpu_torch import quant_bench as qb
     from vyomai_tpu_torch import encoder_bench as eb
     from vyomai_tpu_torch.ops import _build
     from vyomai_tpu_torch.ops import flash_attention as fa
@@ -865,6 +1192,9 @@ def main():
     from vyomai_tpu_torch.ops.paged_decode import (
         paged_attention_decode_ref, paged_decode)
     from vyomai_tpu_torch.ops import short_attention as sa
+    from vyomai_tpu_torch.ops import paged_attention as pa
+    from vyomai_tpu_torch.ops import paged_decode as pdm
+    from vyomai_tpu_torch.ops import quant_matmul as qm
     from vyomai_tpu_torch.serving import paged_model as pm
     t0 = time.perf_counter()
     _build.library()
@@ -872,44 +1202,90 @@ def main():
           f"(nvcc {_build.build_seconds} s)")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    phase("2/12 K4 paged decode vs plain")
+    phase("2/16 K4 paged decode vs plain")
     k4 = phase_decode(torch, paged_decode, paged_attention_decode_ref,
                       flush, card)
-    phase("3/12 K1 flash forward vs plain")
+    phase("3/16 K1 flash forward vs plain")
     k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
                      flush, card)
-    phase("4/12 K2/K3 flash backward vs plain")
+    phase("4/16 K2/K3 flash backward vs plain")
     k23 = phase_flash_bwd(torch, fa, flush, card)
     del flush
-    phase("5/12 end-to-end serving")
-    served = phase_serving(torch, np, tt,
+    phase("5/16 end-to-end serving")
+    served = phase_serving(torch, np, tt, pm,
                            (paged_decode, flash_attention_fwd), card)
-    phase("6/12 serving numerics")
-    phase_numerics(torch, np, tt, pm)
-    phase("7/12 end-to-end training")
+    phase("6/16 serving numerics")
+    phase_numerics(torch, np, tt, pm, kernels=(paged_decode,
+                                                flash_attention_fwd))
+    phase("7/16 end-to-end training")
     trained = phase_training(torch, bench, bench.KERNELS, card)
-    phase("8/12 training numerics")
+    phase("8/16 training numerics")
     phase_train_numerics(torch, np, tt, bench)
-    phase("9/12 K5/K6/K7 short attention vs plain")
+    phase("9/16 K5/K6/K7 short attention vs plain")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     k567 = phase_short(torch, sa, fa, flush, card)
     del flush
-    phase("10/12 end-to-end ViT-base")
+    phase("10/16 end-to-end ViT-base")
     vit = phase_vit(torch, eb, eb.KERNELS, card)
-    phase("11/12 end-to-end RoBERTa-base MLM")
+    phase("11/16 end-to-end RoBERTa-base MLM")
     mlm = phase_mlm(torch, eb, eb.KERNELS, card)
-    phase("12/12 encoder numerics")
+    phase("12/16 encoder numerics")
     phase_encoder_numerics(torch, np, eb, eb.KERNELS)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    phase("13/16 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
+    qmm, k10_path = phase_quant_matmul(torch, qm, qb, flush, card)
+    phase("14/16 K4 int8/int4 pools vs plain")
+    k4q = phase_quant_decode(torch, pdm, pa, flush, card)
+    del flush
+    phase("15/16 end-to-end quantized serving")
+    q8 = phase_serving(
+        torch, np, tt, pm, (flash_attention_fwd, pdm.paged_decode_int8,
+                            qm.int8_matmul), card,
+        label="int8 weights + int8 pool", quant=dict(bits=8),
+        pool_dtype=torch.int8, reference=served["outs"])
+    q4 = phase_serving(
+        torch, np, tt, pm, (flash_attention_fwd, pdm.paged_decode_int4,
+                            qm.int8_matmul, qm.int4_matmul), card,
+        label="int4 weights (gs 128) + int4 pool",
+        quant=dict(bits=4, group_size=128), pool_dtype="int4",
+        reference=served["outs"])
+    bf_ms = served["device_ms"]
+    for label, run in (("int8", q8), ("int4", q4)):
+        if bf_ms and run["device_ms"]:
+            phase(f"decode device ms per step {label} {run['device_ms']:.4f}"
+                  f" vs bf16 {bf_ms:.4f} (ratio "
+                  f"{run['device_ms'] / bf_ms:.4f}) [{card}]")
+    phase("16/16 quantized numerics")
+    phase_numerics(torch, np, tt, pm, "fp32 int8 weights + int8 pool",
+                   quant=dict(bits=8), pool_dtype=torch.int8,
+                   kernels=(qm.int8_matmul, pdm.paged_decode_int8))
+    # K/V computed on the two devices differ in fp32 rounding, and where
+    # one lies at a rounding boundary its int4 entry lands a whole step
+    # (amax/7 of its head) apart: a wider bound than int8's (the count of
+    # such pool bytes is printed)
+    phase_numerics(torch, np, tt, pm, "fp32 int4 weights + int4 pool",
+                   quant=dict(bits=4, group_size=128), pool_dtype="int4",
+                   tol=2e-2, kernels=(qm.int8_matmul, qm.int4_matmul,
+                                      pdm.paged_decode_int4))
+    # W8A8 re-quantizes every linear's input per token on each device, so
+    # fp32 rounding differences flip activation codes at all 14 linears:
+    # the logits bound is wide, and each linear is also held exact on
+    # identical inputs
+    phase_numerics(torch, np, tt, pm, "fp32 W8A8",
+                   quant=dict(bits=8, act_bits=8), tol=0.1,
+                   kernels=(qm.int8_matmul, paged_decode))
+    phase_w8a8_linears(torch, np, tt, qm, pm)
 
     record = {"kernels": [
         {"name": "paged_decode", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
          "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
-         "launches": served["paged_decode"], **k4},
+         "launches": served["launches"]["paged_decode"], **k4},
         {"name": "flash_fwd", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "vyomai_tpu/ops/flash_attention.py:157",
-         "launches": served["flash_attention_fwd"]
+         "launches": sum(run["launches"]["flash_attention_fwd"]
+                         for run in (served, q8, q4))
          + trained["flash_attention_fwd"], **k1},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/flash_bwd.cu",
@@ -932,6 +1308,27 @@ def main():
          "replaces": "vyomai_tpu/ops/short_attention.py:309",
          "launches": vit["short_attention_bwd"]
          + mlm["short_attention_bwd"], **k567["K7"]},
+        {"name": "int8_matmul", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "vyomai_tpu/ops/quant_matmul.py:107",
+         "launches": q8["launches"]["int8_matmul"]
+         + q4["launches"]["int8_matmul"], **qmm["K8"]},
+        {"name": "int4_matmul", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "vyomai_tpu/ops/quant_matmul.py:276",
+         "launches": q4["launches"]["int4_matmul"], **qmm["K9"]},
+        {"name": "int4_attribution", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "benchmarks/int4_dense_bench.py:62",
+         "launches": k10_path["int4_attribution"], **qmm["K10"]},
+        {"name": "paged_decode_int8", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
+         "launches": q8["launches"]["paged_decode_int8"], **k4q["int8"]},
+        {"name": "paged_decode_int4", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
+         "launches": q4["launches"]["paged_decode_int4"], **k4q["int4"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,8 @@ def test_import_never_loads_jax(tmp_path):
             "vyomai_tpu_torch.ops.flash_attention, "
             "vyomai_tpu_torch.ops.paged_decode, vyomai_tpu_torch.ops.fused, "
             "vyomai_tpu_torch.models.decoder, vyomai_tpu_torch.training, "
-            "vyomai_tpu_torch.bench; "
+            "vyomai_tpu_torch.bench, vyomai_tpu_torch.quant, "
+            "vyomai_tpu_torch.ops.quant_matmul, vyomai_tpu_torch.quant_bench; "
             "print('jax' in sys.modules, 'vyomai_tpu' in sys.modules)")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     done = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
@@ -150,6 +151,38 @@ def test_decoder_bridge_round_trip(pe, at):
     want = dict(jax.tree_util.tree_leaves_with_path(tree))
     got = jax.tree_util.tree_leaves_with_path(back)
     assert len(got) == len(want)
+    for path, x in got:
+        w = want[path]
+        assert x.dtype == w.dtype and x.shape == w.shape, path
+        np.testing.assert_array_equal(x, w, err_msg=str(path))
+
+
+@pytest.mark.parametrize("tie", [True, False])
+@pytest.mark.parametrize("opts", [dict(bits=8), dict(bits=4, group_size=32),
+                                  dict(bits=8, act_bits=8)],
+                         ids=["int8", "int4", "w8a8"])
+def test_quantized_bridge_round_trip(tie, opts):
+    """A ``quantize_params`` tree through ``params_from_jax`` and back
+    through ``tree_from_torch`` gives the same bytes: the int8 kernels
+    transposed twice, the packed int4 kernels and every scale as they were,
+    the ``act_q`` and ``out_dtype`` markers with their shapes and dtypes."""
+    from vyomai_tpu_torch.quant import Int4Linear, Int8Embedding, Int8Linear
+    cfg = QCFG.replace(tie_word_embeddings=tie)
+    tcfg = tt.QwenConfig(**{f.name: getattr(cfg, f.name)
+                            for f in fields(cfg)})
+    params = vt.ModelForCausalLM(cfg).init(jax.random.PRNGKey(0),
+                                           dtype=jnp.float32)
+    tree = jax.tree_util.tree_map(
+        np.asarray, vt.quantize_params(params, **opts))
+    model = params_from_jax(tree, tcfg, device="cpu")
+    lin = Int4Linear if opts["bits"] == 4 else Int8Linear
+    assert isinstance(model.layers[1].self_attn.o_proj, lin)
+    assert isinstance(model.embed_tokens, Int8Embedding)
+    assert model.dtype == torch.float32
+    back = tree_from_torch(model)
+    want = dict(jax.tree_util.tree_leaves_with_path(tree))
+    got = jax.tree_util.tree_leaves_with_path(back)
+    assert sorted(str(p) for p, _ in got) == sorted(map(str, want))
     for path, x in got:
         w = want[path]
         assert x.dtype == w.dtype and x.shape == w.shape, path

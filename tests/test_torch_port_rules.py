@@ -3,8 +3,9 @@
 1. The port stands alone: no module of ``vyomai_tpu_torch`` and nothing
    ``chip_smoke.py`` imports loads or reads a file of the JAX package, and
    jax is never imported. Checked in a fresh interpreter (so the other test
-   files' JAX imports cannot leak in) after driving every model and a tiny
-   serving engine, and by a search of the sources for file loaders.
+   files' JAX imports cannot leak in) after driving every model, a tiny
+   serving engine and two quantized ones (W8A8 + int8 pool, int4 + int4
+   pool), and by a search of the sources for file loaders.
 2. Entry points build on the CUDA card unless the caller names another
    device: with no card they raise, naming ``device="cpu"``; they never
    fall back to the CPU quietly.
@@ -50,7 +51,8 @@ import vyomai_tpu_torch as tt
 import vyomai_tpu_torch.bench, vyomai_tpu_torch.encoder_bench  # noqa
 import vyomai_tpu_torch.interop, vyomai_tpu_torch.training  # noqa
 from vyomai_tpu_torch.ops import (flash_attention, fused, paged_decode,  # noqa
-                                  short_attention)
+                                  quant_matmul, short_attention)
+import vyomai_tpu_torch.quant_bench  # noqa: F401
 g = lambda: torch.Generator().manual_seed(0)  # noqa: E731
 ecfg = tt.EncoderConfig(hidden_size=64, num_attention_heads=2,
                         num_key_value_heads=1, num_hidden_layers=1,
@@ -74,6 +76,16 @@ eng = tt.ContinuousBatchEngine(model, num_blocks=32, block_size=8,
                                prefill_buckets=(8, 16))
 done = eng.run() if [eng.submit(p) for p in ([3, 7, 9], [5, 6])] else None
 assert all(len(t) == 3 for t in done.values()), done
+for opts, pool in ((dict(bits=8, act_bits=8), torch.int8),
+                   (dict(bits=4, group_size=16), "int4")):
+    qmodel = tt.quantize_model(tt.ModelForCausalLM(qcfg, device="cpu").init(
+        g()), **opts)
+    eng = tt.ContinuousBatchEngine(qmodel, num_blocks=32, block_size=8,
+                                   max_batch=2, max_blocks_per_seq=4,
+                                   max_new_tokens=3, dtype=pool,
+                                   prefill_buckets=(8, 16))
+    sid = eng.submit([3, 7, 9])
+    assert len(eng.run()[sid]) == 3
 jax_pkg = (root / "vyomai_tpu").resolve()
 loaded = sorted(
     name for name, mod in list(sys.modules.items())
@@ -158,6 +170,10 @@ ENTRY_POINTS = {
     "ModelForCausalLM": lambda **kw: tt.ModelForCausalLM(QCFG, **kw),
     "init_pool": lambda **kw: paged_model.init_pool(
         QCFG, 4, 8, dtype=torch.float32, **kw),
+    "init_pool_int8": lambda **kw: paged_model.init_pool(
+        QCFG, 4, 8, dtype=torch.int8, **kw)["kv"],
+    "init_pool_int4": lambda **kw: paged_model.init_pool(
+        QCFG, 4, 8, dtype="int4", **kw)["scale"],
     "decoder_params_from_jax": lambda **kw: decoder_params_from_jax(
         _trees()["decoder"], ECFG, "rope", "gqa", **kw),
     "encoder_params_from_jax": lambda **kw: encoder_params_from_jax(

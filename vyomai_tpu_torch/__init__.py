@@ -12,4 +12,5 @@ from .models.decoder import DecoderModel  # noqa: F401
 from .models.encoder import EncoderForMaskedLM, EncoderModel  # noqa: F401
 from .models.qwen import ModelForCausalLM  # noqa: F401
 from .models.vision import Vit  # noqa: F401
+from .quant import dequantize_model, quantize_model  # noqa: F401
 from .serving import ContinuousBatchEngine  # noqa: F401

@@ -75,6 +75,39 @@ def tied_lm_head(weight: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
     return torch.matmul(hidden, weight.t().to(hidden.dtype))
 
 
+# -- module dispatch (float modules or the quantized ones of ``quant``) ------
+#
+# The JAX package's ``linear`` / ``embedding`` / ``tied_lm_head`` dispatch on
+# the keys of a param dict; here the module decides. A float ``nn.Linear`` or
+# ``nn.Embedding`` goes through the functions above, bit for bit as before;
+# any other module (``quant.Int8Linear``, ``Int4Linear``, ``Int8Embedding``)
+# through its own methods.
+
+def apply_linear(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(mod, nn.Linear):
+        return linear(mod.weight, x, mod.bias)
+    return mod(x)
+
+
+def apply_embedding(mod: nn.Module, ids: torch.Tensor) -> torch.Tensor:
+    if isinstance(mod, nn.Embedding):
+        return embedding(mod.weight, ids)
+    return mod(ids)
+
+
+def apply_tied_lm_head(mod: nn.Module, hidden: torch.Tensor) -> torch.Tensor:
+    if isinstance(mod, nn.Embedding):
+        return tied_lm_head(mod.weight, hidden)
+    return mod.tied_lm_head(hidden)
+
+
+def embedding_dtype(mod: nn.Module) -> torch.dtype:
+    """Activation dtype of a token table: the float table's own, or the
+    one a quantized table returns."""
+    return mod.weight.dtype if isinstance(mod, nn.Embedding) else \
+        mod.out_dtype
+
+
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 

@@ -1,24 +1,33 @@
 // Paged-decode attention for Hopper (sm_90a).
 //
-// Replaces the TPU kernel vyomai_tpu/ops/paged_decode_pallas.py `_kernel`
-// (bf16 / fp32 pool, no window, sinks or quantization yet).
+// Replaces the TPU kernel vyomai_tpu/ops/paged_decode_pallas.py `_kernel`:
+// bf16 / fp32 pools (PR 1) and, as the `Quant` template variants, its int8
+// pool (one fp32 scale per written row) and int4 pool (two values per byte,
+// per-head-local split halves, one fp32 scale per (row, kv head)). Window
+// and sinks are not ported yet.
 //
 // What bounds it on the H100: device-memory bandwidth. Per decode step each
 // live context token's K and V rows (2 * D elements per kv head) are read
 // once and used for a handful of FMAs per byte, far below the ~295 FLOP/byte
-// the card needs before its arithmetic would limit.
+// the card needs before its arithmetic would limit. The int8 and int4 pools
+// halve and quarter those bytes.
 //
 // Design: one CTA per (sequence, kv head), 128 threads. The CTA loads its
 // `group` query rows once, reads block_tables[b, j] itself (no scalar
 // prefetch exists here), and streams the live context in tiles of 32 tokens:
-// each K/V row is the contiguous column range g*D:(g+1)*D of the H_kv*D pool
-// row, fetched with 16-byte vector loads by neighbouring threads and staged
+// each K/V row is the contiguous column range of head g in the pool row,
+// fetched with 16-byte vector loads by neighbouring threads and staged
 // in shared memory as fp32 (rows padded to D+1 floats so the per-token dot
-// products hit distinct banks). Scores, the online softmax (running max
-// floored at -1e30) and the value sum are fp32; only the live blocks
-// (min(seq_len, MAXB*BS) tokens) are read. The TPU kernel's block-diagonal q
-// expansion existed to feed its matrix unit and is not carried over: a
-// group of 1-8 query rows is a few dot products per token here.
+// products hit distinct banks). Quantized rows are staged as their integer
+// values; int4 bytes are unpacked in registers straight into natural
+// feature order (byte j of a head holds feature j low and feature j + D/2
+// high), so the TPU kernel's "pi order" and block-diagonal q, which existed
+// for Mosaic's lanes, are not carried over. The scales fold through the
+// score matrix as on the TPU: a key row's scale multiplies its score, and a
+// value row's scale multiplies its probability AFTER the running sum `l` has
+// taken the unscaled one (the TPU kernel's l.163 before l.166-167). Scores,
+// the online softmax (running max floored at -1e30) and the value sum are
+// fp32; only the live blocks (min(seq_len, MAXB*BS) tokens) are read.
 // Not yet done (later work): double-buffered cp.async/TMA loads and a
 // split-KV pass for batches whose B*H_kv CTAs leave SMs idle.
 
@@ -30,19 +39,75 @@ constexpr int kDecodeThreads = 128;
 constexpr int kDecodeTile = 32;   // tokens per shared-memory tile (= warp)
 constexpr int kMaxGroup = 8;      // query heads per kv head
 
-template <typename T, int D>
+enum PoolQuant { kFloatPool = 0, kInt8Pool = 1, kInt4Pool = 2 };
+
+// One 16-byte chunk `c` of head g's part of a pool row, into the fp32 smem
+// row `dst` in natural feature order. Float pools: Vec<T>::kN features;
+// int8: 16; int4: 16 bytes = features c*16.. (low nibbles) and
+// D/2 + c*16.. (high nibbles).
+template <typename T, int D, int Quant>
+__device__ __forceinline__ void stage_chunk(const char* row, int c,
+                                            float* dst) {
+  if (Quant == kFloatPool) {
+    constexpr int VN = Vec<T>::kN;
+    float v[VN];
+    load_vec<T>(reinterpret_cast<const T*>(row) + c * VN, v);
+#pragma unroll
+    for (int e = 0; e < VN; ++e) dst[c * VN + e] = v[e];
+  } else {
+    const uint4 raw = *(reinterpret_cast<const uint4*>(row) + c);
+    const int8_t* bytes = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int x = (int)bytes[e];
+      if (Quant == kInt8Pool) {
+        dst[c * 16 + e] = (float)x;
+      } else {
+        dst[c * 16 + e] = (float)(((x & 15) ^ 8) - 8);
+        dst[D / 2 + c * 16 + e] = (float)(x >> 4);
+      }
+    }
+  }
+}
+
+// Zero what stage_chunk would have written (tokens past the live length).
+template <typename T, int D, int Quant>
+__device__ __forceinline__ void zero_chunk(int c, float* dst) {
+  if (Quant == kFloatPool) {
+    constexpr int VN = Vec<T>::kN;
+#pragma unroll
+    for (int e = 0; e < VN; ++e) dst[c * VN + e] = 0.f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      dst[c * 16 + e] = 0.f;
+      if (Quant == kInt4Pool) dst[D / 2 + c * 16 + e] = 0.f;
+    }
+  }
+}
+
+template <typename T, int D, int Quant>
 __global__ void __launch_bounds__(kDecodeThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+paged_decode_kernel(const T* __restrict__ q, const char* __restrict__ pool,
+                    const float* __restrict__ scales,
                     const int* __restrict__ block_tables,
                     const int* __restrict__ seq_lens, T* __restrict__ out,
                     int H, int H_kv, int BS, int MAXB, int W) {
   constexpr int TOK = kDecodeTile, NT = kDecodeThreads;
-  constexpr int VN = Vec<T>::kN, CPR = D / VN, LD = D + 1;
+  // 16-byte chunks per head row, bytes per stored element, stored elements
+  // per head row
+  constexpr int CPR = Quant == kFloatPool  ? D / Vec<T>::kN
+                      : Quant == kInt8Pool ? D / 16
+                                           : D / 32;
+  constexpr int EB = Quant == kFloatPool ? (int)sizeof(T) : 1;
+  constexpr int HW = Quant == kInt4Pool ? D / 2 : D;
+  constexpr int LD = D + 1;
   constexpr int PER = kMaxGroup * D / NT;   // accumulators per thread
   __shared__ float qs[kMaxGroup * D];
   __shared__ float ks[TOK * LD];
   __shared__ float vs[TOK * LD];
   __shared__ float ps[kMaxGroup][TOK];
+  __shared__ float ksc[TOK], vsc[TOK];     // quantized pools' row scales
   __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], alpha_s[kMaxGroup];
 
   const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
@@ -66,24 +131,39 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   for (int t0 = 0; t0 < n; t0 += TOK) {
     __syncthreads();   // previous tile fully consumed
     for (int c = tid; c < TOK * CPR; c += NT) {
-      const int t = c / CPR, col = (c % CPR) * VN, tok = t0 + t;
-      float kx[VN], vx[VN];
+      const int t = c / CPR, ch = c % CPR, tok = t0 + t;
       if (tok < n) {
         int blk = table[tok / BS];
         blk = blk < 0 ? 0 : blk;   // -1 entries read block 0 (masked)
         const size_t row =
-            ((size_t)blk * 2 * BS + (size_t)(tok % BS)) * W + (size_t)g * D +
-            col;
-        load_vec<T>(pool + row, kx);
-        load_vec<T>(pool + row + (size_t)BS * W, vx);
+            ((size_t)blk * 2 * BS + (size_t)(tok % BS)) * W + (size_t)g * HW;
+        stage_chunk<T, D, Quant>(pool + row * EB, ch, ks + t * LD);
+        stage_chunk<T, D, Quant>(pool + (row + (size_t)BS * W) * EB, ch,
+                                 vs + t * LD);
       } else {
-#pragma unroll
-        for (int e = 0; e < VN; ++e) kx[e] = vx[e] = 0.f;
+        zero_chunk<T, D, Quant>(ch, ks + t * LD);
+        zero_chunk<T, D, Quant>(ch, vs + t * LD);
       }
-#pragma unroll
-      for (int e = 0; e < VN; ++e) {
-        ks[t * LD + col + e] = kx[e];
-        vs[t * LD + col + e] = vx[e];
+    }
+    if (Quant != kFloatPool) {
+      for (int t = tid; t < TOK; t += NT) {
+        const int tok = t0 + t;
+        float a = 0.f, c = 0.f;
+        if (tok < n) {
+          int blk = table[tok / BS];
+          blk = blk < 0 ? 0 : blk;
+          if (Quant == kInt8Pool) {   // scales [NB, 2, BS]
+            const size_t i = (size_t)blk * 2 * BS + tok % BS;
+            a = scales[i];
+            c = scales[i + BS];
+          } else {                    // scales [NB, 2, H_kv, BS]
+            const size_t i = ((size_t)blk * 2 * H_kv + g) * BS + tok % BS;
+            a = scales[i];
+            c = scales[i + (size_t)H_kv * BS];
+          }
+        }
+        ksc[t] = a;
+        vsc[t] = c;
       }
     }
     __syncthreads();
@@ -94,6 +174,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+      if (Quant != kFloatPool) s *= ksc[t];
       ps[gg][t] = (t0 + t < n) ? s : -INFINITY;
     }
     __syncthreads();
@@ -111,7 +192,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      ps[gg][lane] = p;
+      // l takes the unscaled p; the value sum takes p times v's row scale
+      ps[gg][lane] = Quant == kFloatPool ? p : p * vsc[lane];
       __syncwarp();
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
@@ -146,38 +228,63 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   }
 }
 
-template <typename T>
-static void launch_paged(const void* q, const void* pool, const int* bt,
-                         const int* sl, void* out, int B, int H, int H_kv,
-                         int D, int BS, int MAXB, int W, cudaStream_t st) {
+template <typename T, int Quant>
+static void launch_paged(const void* q, const void* pool, const float* sc,
+                         const int* bt, const int* sl, void* out, int B,
+                         int H, int H_kv, int D, int BS, int MAXB, int W,
+                         cudaStream_t st) {
   const dim3 grid(B, H_kv), block(kDecodeThreads);
   if (D == 64)
-    paged_decode_kernel<T, 64><<<grid, block, 0, st>>>(
-        (const T*)q, (const T*)pool, bt, sl, (T*)out, H, H_kv, BS, MAXB, W);
+    paged_decode_kernel<T, 64, Quant><<<grid, block, 0, st>>>(
+        (const T*)q, (const char*)pool, sc, bt, sl, (T*)out, H, H_kv, BS,
+        MAXB, W);
   else
-    paged_decode_kernel<T, 128><<<grid, block, 0, st>>>(
-        (const T*)q, (const T*)pool, bt, sl, (T*)out, H, H_kv, BS, MAXB, W);
+    paged_decode_kernel<T, 128, Quant><<<grid, block, 0, st>>>(
+        (const T*)q, (const char*)pool, sc, bt, sl, (T*)out, H, H_kv, BS,
+        MAXB, W);
+}
+
+template <typename T>
+static void launch_quant(int quant, const void* q, const void* pool,
+                         const float* sc, const int* bt, const int* sl,
+                         void* out, int B, int H, int H_kv, int D, int BS,
+                         int MAXB, int W, cudaStream_t st) {
+  if (quant == kInt8Pool)
+    launch_paged<T, kInt8Pool>(q, pool, sc, bt, sl, out, B, H, H_kv, D, BS,
+                               MAXB, W, st);
+  else if (quant == kInt4Pool)
+    launch_paged<T, kInt4Pool>(q, pool, sc, bt, sl, out, B, H, H_kv, D, BS,
+                               MAXB, W, st);
+  else
+    launch_paged<T, kFloatPool>(q, pool, sc, bt, sl, out, B, H, H_kv, D, BS,
+                                MAXB, W, st);
 }
 
 }  // namespace vyomai
 
+// W: the pool row's stored width in elements (H_kv*D; H_kv*D/2 bytes for
+// int4). quant: 0 float pool of q's dtype, 1 int8, 2 int4 (scales needed).
 extern "C" int paged_decode_launch(const void* q, const void* pool,
+                                   const void* scales,
                                    const void* block_tables,
                                    const void* seq_lens, void* out, int B,
                                    int H, int H_kv, int D, int BS, int MAXB,
-                                   int W, int is_bf16, void* stream) {
+                                   int W, int quant, int is_bf16,
+                                   void* stream) {
   using namespace vyomai;
-  if ((D != 64 && D != 128) || H % H_kv || H / H_kv > kMaxGroup)
+  if ((D != 64 && D != 128) || H % H_kv || H / H_kv > kMaxGroup ||
+      quant < 0 || quant > 2 || (quant && scales == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
-    launch_paged<__nv_bfloat16>(q, pool, (const int*)block_tables,
+    launch_quant<__nv_bfloat16>(quant, q, pool, (const float*)scales,
+                                (const int*)block_tables,
                                 (const int*)seq_lens, out, B, H, H_kv, D, BS,
                                 MAXB, W, st);
   else
-    launch_paged<float>(q, pool, (const int*)block_tables,
-                        (const int*)seq_lens, out, B, H, H_kv, D, BS, MAXB,
-                        W, st);
+    launch_quant<float>(quant, q, pool, (const float*)scales,
+                        (const int*)block_tables, (const int*)seq_lens, out,
+                        B, H, H_kv, D, BS, MAXB, W, st);
   return (int)cudaGetLastError();
 }
 

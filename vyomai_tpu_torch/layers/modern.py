@@ -62,10 +62,10 @@ class SwiGLU(nn.Module):
 
 
 def swiglu_apply(mlp: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    """``down(silu(gate(x)) * up(x))``."""
-    gate = torch.nn.functional.silu(cnn.linear(mlp.gate_proj.weight, x))
-    return cnn.linear(mlp.down_proj.weight,
-                      gate * cnn.linear(mlp.up_proj.weight, x))
+    """``down(silu(gate(x)) * up(x))`` (float or quantized projections)."""
+    gate = torch.nn.functional.silu(cnn.apply_linear(mlp.gate_proj, x))
+    return cnn.apply_linear(mlp.down_proj,
+                            gate * cnn.apply_linear(mlp.up_proj, x))
 
 
 class ModernLayer(nn.Module):

@@ -12,6 +12,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from ..config import QwenConfig
+from ..core import nn as cnn
 from ..core.device import resolve_device
 from ..layers import positional as pos
 from ..layers.modern import ModernLayer, RMSNorm
@@ -47,11 +48,12 @@ class ModelForCausalLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed_tokens.weight.device
+        return self.norm.weight.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.embed_tokens.weight.dtype
+        """The activation dtype (a quantized table's ``out_dtype``)."""
+        return cnn.embedding_dtype(self.embed_tokens)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator, std: float = 0.02

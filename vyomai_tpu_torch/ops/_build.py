@@ -25,10 +25,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the kernels' launchers (each returns cudaGetLastError())
 _SIGNATURES = {
-    # q, pool, block_tables, seq_lens, out, B, H, H_kv, D, BS, MAXB, W,
-    # is_bf16, stream
-    "paged_decode_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _P],
+    # q, pool, scales, block_tables, seq_lens, out, B, H, H_kv, D, BS, MAXB,
+    # W, quant, is_bf16, stream
+    "paged_decode_launch": [_P] * 6 + [_I] * 9 + [_P],
+    # x, w, scale, out, M, N, K, w strides (n, k), is_bf16, stream
+    "int8_matmul_launch": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I, _P],
+    # x, w_p, scale, out, M, N, K, group size, mode, scale_row, is_bf16,
+    # stream
+    "int4_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
     # q, k, v, bias, out, lse, B, H, H_kv, Lq, Lk, D, bias strides (b, h,
     # q), causal, q_offset, is_bf16, stream
     "flash_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,0 +1,136 @@
+"""Decode-shaped quantized matmuls on one NVIDIA card (counterpart of part
+1 of the JAX package's ``benchmarks/quant_bench.py`` and of
+``benchmarks/int4_dense_bench.py``).
+
+    python -m vyomai_tpu_torch.quant_bench [--m 16] [--gs 128]
+
+For each linear shape of Qwen3-0.6B (and its tied head) at M decode
+tokens, bf16 activations: ``torch.matmul`` on the bf16 weight, the plain
+int8 version, K8 (int8, the modules' ``nk`` layout), K9 fold and split
+(int4, group ``gs``). Then the int4 attribution of ``int4_dense_bench``
+at M=8, K=N=2048: bf16, K8, K9 fold, and K10's ``stream`` (the packed bytes
+dotted as int8: K9's traffic without unpack or group scales) and
+``noscale`` (unpack, one scale row) modes. One JSON line per shape.
+
+Times are medians of CUDA-event launches with the 50 MB L2 flushed before
+each (the weights come from device memory, as in a decode step). Part 2 of
+the JAX bench (static-cache ``generate``) waits for the port's
+``generate``; ``chip_smoke.py`` serves the quantized model instead.
+"""
+
+import argparse
+import json
+import statistics
+
+import torch
+
+from .ops import quant_matmul as qm
+
+# (K, N) of Qwen3-0.6B's linears: q, k/v, o, gate/up, down, tied head
+QWEN3_SHAPES = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+                (3072, 1024), (1024, 151936))
+
+
+def time_ms(fn, flush: torch.Tensor, iters: int = 20,
+            warmup: int = 3) -> float:
+    """Median device time of ``fn`` in ms (CUDA events), the L2 flushed
+    before each timed launch."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _flush() -> torch.Tensor:
+    return torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+
+def _weights(k: int, n: int, gs: int, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(k, n, device="cuda", generator=g) * 0.02
+    q, s = qm.quantize_weight(w.t(), contract_axis=1)       # [N, K]
+    p, s4 = qm.quantize_weight_int4(w, group_size=gs)
+    return w.to(torch.bfloat16), q, s, p, s4
+
+
+def bench_shape(m: int, k: int, n: int, gs: int = 128,
+                iters: int = 20) -> dict:
+    """ms of each variant at one shape, and its weight bytes per ms."""
+    w_bf, q, s, p, s4 = _weights(k, n, gs, k + n)
+    x = torch.randn(m, k, device="cuda").to(torch.bfloat16)
+    flush = _flush()
+    variants = {
+        "bf16": (lambda: x @ w_bf, 2 * k * n),
+        "int8_plain": (lambda: qm.int8_matmul_ref(x, q, s, "nk"), k * n),
+        "int8": (lambda: qm.int8_matmul(x, q, s, w_layout="nk"), k * n),
+        "int4_fold": (lambda: qm.int4_matmul(x, p, s4, kernel="fold"),
+                      k * n // 2),
+        "int4_split": (lambda: qm.int4_matmul(x, p, s4, kernel="split"),
+                       k * n // 2),
+    }
+    out = {"m": m, "k": k, "n": n, "gs": gs}
+    for name, (fn, nbytes) in variants.items():
+        ms = time_ms(fn, flush, iters)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_weight_GBps"] = nbytes / ms / 1e6
+    return out
+
+
+def int4_attribution(m: int = 8, k: int = 2048, n: int = 2048,
+                     gs: int = 128, iters: int = 20) -> dict:
+    """Where the int4 kernel's time goes (``int4_dense_bench``): K9 fold
+    against K10's stream floor (same bytes, no unpack, no group scales)
+    and noscale (unpack, one scale row), beside bf16 and K8."""
+    w_bf, q, s, p, s4 = _weights(k, n, gs, 0)
+    x = torch.randn(m, k, device="cuda").to(torch.bfloat16)
+    row = qm.k10_scale_row(k, gs)
+    flush = _flush()
+    variants = {
+        "bf16": lambda: x @ w_bf,
+        "int8": lambda: qm.int8_matmul(x, q, s, w_layout="nk"),
+        "int4": lambda: qm.int4_matmul(x, p, s4, kernel="fold"),
+        "int4_stream": lambda: qm.int4_attribution(x, p, s4, mode="stream",
+                                                   scale_row=row),
+        "int4_noscale": lambda: qm.int4_attribution(
+            x, p, s4, mode="noscale", scale_row=row),
+    }
+    us = {name: 1e3 * time_ms(fn, flush, iters)
+          for name, fn in variants.items()}
+    return {
+        "metric": "int4_dense_attribution", "m": m, "k": k, "n": n,
+        "gs": gs, **{f"{name}_us": t for name, t in us.items()},
+        "int4_vs_int8": us["int8"] / us["int4"],
+        "unpack_tax_us": us["int4_noscale"] - us["int4_stream"],
+        "scale_tax_us": us["int4"] - us["int4_noscale"],
+        "stream_floor_us": us["int4_stream"],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--m", type=int, default=16)
+    ap.add_argument("--gs", type=int, default=128)
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("quant_bench measures the CUDA card; none found")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = torch.cuda.get_device_name(0)
+    for k, n in QWEN3_SHAPES:
+        rec = bench_shape(args.m, k, n, args.gs, args.iters)
+        print(json.dumps({"device": card, **rec}), flush=True)
+    print(json.dumps({"device": card, **int4_attribution(
+        gs=args.gs, iters=args.iters)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

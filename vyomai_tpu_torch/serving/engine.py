@@ -72,8 +72,11 @@ class ContinuousBatchEngine:
                  max_prefill_per_tick: Optional[int] = 4,
                  device=None, **unsupported):
         """``model``: a ``models.qwen.ModelForCausalLM`` on ``device``
-        (default: the model's device). ``dtype`` is the pool's storage
-        dtype. ``radix_cache=False`` disables prefix caching.
+        (default: the model's device), float or quantized
+        (``quant.quantize_model``). ``dtype`` is the pool's storage dtype:
+        a float dtype, ``torch.int8`` or ``"int4"`` (quantized pools,
+        ``paged_model.init_pool``). ``radix_cache=False`` disables prefix
+        caching.
         ``max_prefill_per_tick`` caps prefill calls per tick while
         sequences are decoding (None = drain all prefills first)."""
         _reject(unsupported, _UNPORTED_ENGINE_ARGS, "ContinuousBatchEngine")
@@ -187,7 +190,10 @@ class ContinuousBatchEngine:
 
     def metrics(self) -> Dict[str, float]:
         """Running counters plus ``ttft_mean_s``/``ttft_max_s``,
-        ``cache_hit_rate`` and ``tokens_per_s`` since construction."""
+        ``cache_hit_rate``, ``tokens_per_s`` since construction, and the
+        device bytes the pool (``pool_bytes``, scales included) and the
+        model's weights (``weight_bytes``, quantized buffers included)
+        hold."""
         out = dict(self.counters)
         out.update(self.kv.cache_stats())
         out["ttft_mean_s"] = (sum(self._ttft) / len(self._ttft)
@@ -198,6 +204,9 @@ class ContinuousBatchEngine:
             / max(self.counters["prompt_tokens"], 1))
         out["tokens_per_s"] = self.counters["tokens_generated"] / max(
             time.monotonic() - self._t_start, 1e-9)
+        out["pool_bytes"] = paged_model.pool_bytes(self.pool)
+        out["weight_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in self.model.state_dict().values())
         return out
 
     def stream(self):

@@ -13,6 +13,16 @@ entry ``j >= 0`` of layer ``l`` becomes ``j + l*NB``, while ``-1`` entries
 stay ``-1`` in prefill AND decode and are read as block 0 under the mask
 (the JAX prefill offsets padded entries as well, leaving the context-length
 mask alone to hide what they address).
+
+A pool is a float tensor, or for the quantized pools of the JAX package a
+dict ``{"kv": int8 [L, NB, 2, BS, W'], "scale": fp32 sidecar}`` (W' = H_kv*D
+for int8 with scales ``[L, NB, 2, BS]``, H_kv*D/2 for int4 with scales
+``[L, NB, 2, H_kv, BS]``). Prefill attends over ``gather_kv``'s dequantized
+K/V, including the suffix it has just written, so the quantized path sees
+its own quantization as JAX's does.
+
+Linears, the token table and the tied head go through ``core.nn``'s module
+dispatch, so a model from ``quant.quantize_model`` runs unchanged.
 """
 
 from typing import Optional
@@ -31,21 +41,57 @@ from ..ops.paged_decode import paged_decode
 
 
 def init_pool(config, num_blocks: int, block_size: int,
-              dtype=torch.bfloat16, device=None) -> torch.Tensor:
+              dtype=torch.bfloat16, device=None):
     """Combined K/V pool ``[L, NB, 2, BS, H_kv*D]`` (k row 0, v row 1), on
-    the card unless ``device`` names another."""
+    the card unless ``device`` names another.
+
+    ``dtype=torch.int8`` stores rows quantized at write time with one fp32
+    scale per (layer, block, k/v, slot); ``dtype="int4"`` packs two values
+    per byte with one scale per (row, kv head). Both return the dict of the
+    module docstring, the scales initialised to 1 as in JAX."""
+    device = resolve_device(device)
+    h_kv = config.num_key_value_heads
+    shape = (config.num_hidden_layers, num_blocks, 2, block_size,
+             h_kv * config.head_dim)
+    if dtype == "int4":
+        return {"kv": torch.zeros(shape[:4] + (shape[4] // 2,),
+                                  dtype=torch.int8, device=device),
+                "scale": torch.ones(shape[:3] + (h_kv, block_size),
+                                    dtype=torch.float32, device=device)}
+    if dtype == torch.int8:
+        return {"kv": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale": torch.ones(shape[:4], dtype=torch.float32,
+                                    device=device)}
     if dtype not in (torch.bfloat16, torch.float32, torch.float64):
-        raise NotImplementedError(f"pool dtype {dtype}: only float pools "
-                                  "are ported")
-    width = config.num_key_value_heads * config.head_dim
-    return torch.zeros((config.num_hidden_layers, num_blocks, 2, block_size,
-                        width), dtype=dtype, device=resolve_device(device))
+        raise NotImplementedError(f"pool dtype {dtype}: float, torch.int8 "
+                                  'or "int4"')
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def pool_parts(pool):
+    """``(kv [L, NB, 2, BS, W'], scales or None)`` of a pool."""
+    if isinstance(pool, dict):
+        return pool["kv"], pool["scale"]
+    return pool, None
+
+
+def pool_bytes(pool) -> int:
+    return sum(t.numel() * t.element_size() for t in pool_parts(pool)
+               if t is not None)
+
+
+def _flat(pool):
+    """The pool's ``[L*NB, ...]`` views (views cost nothing) and NB."""
+    kv, sc = pool_parts(pool)
+    nl, nb = kv.shape[:2]
+    flat_sc = None if sc is None else sc.view(nl * nb, *sc.shape[2:])
+    return kv.view(nl * nb, *kv.shape[2:]), flat_sc, nb
 
 
 def _head(model, h: torch.Tensor) -> torch.Tensor:
     if model.lm_head is not None:
-        return cnn.linear(model.lm_head.weight, h)
-    return cnn.tied_lm_head(model.embed_tokens.weight, h)
+        return cnn.apply_linear(model.lm_head, h)
+    return cnn.apply_tied_lm_head(model.embed_tokens, h)
 
 
 def _layer_tables(tables: torch.Tensor, layer: int, nb: int) -> torch.Tensor:
@@ -64,9 +110,9 @@ def _rope(model, positions: torch.Tensor, dtype):
 def _qkv(attn, cfg, normed, lead):
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
-    q = cnn.linear(attn.q_proj.weight, normed).reshape(*lead, nh, hd)
-    k = cnn.linear(attn.k_proj.weight, normed).reshape(*lead, nkv, hd)
-    v = cnn.linear(attn.v_proj.weight, normed).reshape(*lead, nkv, hd)
+    q = cnn.apply_linear(attn.q_proj, normed).reshape(*lead, nh, hd)
+    k = cnn.apply_linear(attn.k_proj, normed).reshape(*lead, nkv, hd)
+    v = cnn.apply_linear(attn.v_proj, normed).reshape(*lead, nkv, hd)
     if attn.q_norm is not None:
         q = cnn.rms_norm(attn.q_norm.weight, q, eps=cfg.rms_norm_eps)
         k = cnn.rms_norm(attn.k_norm.weight, k, eps=cfg.rms_norm_eps)
@@ -90,11 +136,11 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
     """
     cfg = model.config
     n, t_pad = ids.shape
-    nl, nb, _, bs, width = pool.shape
+    flat_pool, flat_sc, nb = _flat(pool)
+    bs = flat_pool.shape[2]
     nkv = cfg.num_key_value_heads
     maxb = block_tables.shape[1]
-    flat_pool = pool.view(nl * nb, 2, bs, width)
-    hidden = cnn.embedding(model.embed_tokens.weight, ids)      # [N, T, Dm]
+    hidden = cnn.apply_embedding(model.embed_tokens, ids)       # [N, T, Dm]
 
     # causal-with-offset additive mask over the gathered context
     k_pos = torch.arange(maxb * bs, device=ids.device)[None, None, :]
@@ -112,14 +158,18 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
         k = k * cos + rotate_half(k) * sin
         write_kv(flat_pool, k.reshape(n * t_pad, nkv, -1),
                  v.reshape(n * t_pad, nkv, -1),
-                 _layer_tables(flat_blocks, layer_i, nb), flat_offsets)
+                 _layer_tables(flat_blocks, layer_i, nb), flat_offsets,
+                 scales=flat_sc)
         tables = _layer_tables(block_tables, layer_i, nb).clamp_min(0)
-        kk, vv = gather_kv(flat_pool, tables, nkv)  # [N, H_kv, MAXB*BS, D]
+        # [N, H_kv, MAXB*BS, D]; a quantized pool's come back dequantized
+        # in fp32 and are rounded to q's dtype for K1 here, where the TPU
+        # kernel took them in fp32 (one more rounding at bf16)
+        kk, vv = gather_kv(flat_pool, tables, nkv, flat_sc)
         qh = q.transpose(1, 2).contiguous()          # [N, H, T, D]
         attn, _ = flash_attention_fwd(qh, kk.to(qh.dtype).contiguous(),
                                       vv.to(qh.dtype).contiguous(), bias)
         attn = attn.transpose(1, 2).reshape(n, t_pad, -1)
-        hidden = hidden + cnn.linear(layer.self_attn.o_proj.weight, attn)
+        hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj, attn)
         hidden = _mlp_block(layer, cfg, hidden)
     return cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
 
@@ -149,10 +199,9 @@ def decode(model, pool, tokens, positions, block_tables, seq_lens,
     Returns logits [B, V]."""
     cfg = model.config
     b = tokens.shape[0]
-    nl, nb, _, bs, width = pool.shape
+    flat_pool, flat_sc, nb = _flat(pool)
     nkv = cfg.num_key_value_heads
-    flat_pool = pool.view(nl * nb, 2, bs, width)
-    hidden = cnn.embedding(model.embed_tokens.weight, tokens)    # [B, Dm]
+    hidden = cnn.apply_embedding(model.embed_tokens, tokens)     # [B, Dm]
     cos, sin = _rope(model, positions, hidden.dtype)             # [B,1,D]
     for layer_i, layer in enumerate(model.layers):
         normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
@@ -161,12 +210,12 @@ def decode(model, pool, tokens, positions, block_tables, seq_lens,
         q = q * cos + rotate_half(q) * sin
         k = k * cos + rotate_half(k) * sin
         write_kv(flat_pool, k, v, _layer_tables(slot_blocks, layer_i, nb),
-                 slot_offsets)
+                 slot_offsets, scales=flat_sc)
         attn = paged_decode(q.contiguous(), flat_pool,
                             _layer_tables(block_tables, layer_i, nb),
-                            seq_lens, nkv)                       # [B, H, D]
-        hidden = hidden + cnn.linear(layer.self_attn.o_proj.weight,
-                                     attn.reshape(b, -1))
+                            seq_lens, nkv, scales=flat_sc)       # [B, H, D]
+        hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj,
+                                           attn.reshape(b, -1))
         hidden = _mlp_block(layer, cfg, hidden)
     hidden = cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
     return _head(model, hidden)
@@ -207,7 +256,7 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
     position; live: [B] bool. Returns ``(generated [B, horizon] int32,
     final_tokens [B] int32, eos_dead [B] bool)`` (dead entries are 0)."""
     b = tokens.shape[0]
-    bs = pool.shape[3]
+    bs = pool_parts(pool)[0].shape[3]
     maxb = block_tables.shape[1]
     dev = tokens.device
     out = torch.zeros((b, horizon), dtype=torch.int32, device=dev)
