@@ -8,10 +8,12 @@ Phases (each prints a flushed ``[chip_smoke]`` marker; any failure raises
 and exits non-zero):
 
 1. device and set-up: require CUDA, disable TF32, print the card's name and
-   power limit, build the CUDA kernels from ``vyomai_tpu_torch/csrc``;
+   power limit, build the CUDA kernels from ``vyomai_tpu_torch/csrc``, and
+   count with ``cuobjdump`` the tensor-core (HMMA) instructions and the
+   registers of each bf16 attention forward kernel;
 2. K4 paged decode against its plain version at the serving shapes;
 3. K1 flash forward against its plain version at the prefill and training
-   shapes;
+   shapes and the contract's edges (ragged, causal, fully masked rows);
 4. K2/K3 flash backward against their plain versions at the training
    shapes and the contract's edges;
 5. end-to-end serving at Qwen3-0.6B width (``QwenConfig()``, random bf16
@@ -57,6 +59,8 @@ Imports nothing of JAX.
 
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -75,15 +79,24 @@ def check(cond: bool, msg: str):
         raise AssertionError(msg)
 
 
+# Cycles of the sleep kernel queued before each timed call (~1 ms): the
+# card is busy with it while the host enqueues the call, so the events time
+# the device's work and not the wrapper's checks and launch, which take tens
+# of microseconds, longer than the smaller kernels themselves.
+SLEEP_CYCLES = 2_000_000
+
+
 def cuda_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` in ms (CUDA events), with the L2 cache
-    flushed before each timed launch."""
+    flushed before each timed call and a sleep kernel queued behind the
+    flush (``SLEEP_CYCLES``)."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -100,6 +113,15 @@ def bf16_atol(ref) -> float:
     most one bf16 ulp of the output after the final cast, 2^-7 of its
     largest magnitude."""
     return 2.0 ** -7 * float(ref.float().abs().max()) + 1e-4
+
+
+def attn_bf16_atol(ref, v) -> float:
+    """A bf16 attention forward (K1, K5, K6) against its plain version:
+    ``bf16_atol``, plus the tensor-core kernels' rounding of P to bf16
+    before P.V (the plain versions keep it fp32). That moves each weight by
+    at most 2^-9 of itself, so an output by at most 2^-9 max|v|; 2^-8
+    leaves a factor of 2."""
+    return bf16_atol(ref) + 2.0 ** -8 * float(v.float().abs().max())
 
 
 FP32_ATOL = 1e-4   # fp32 kernels vs plain fp32 (summation order only)
@@ -124,6 +146,52 @@ def bound(flops: float, nbytes: float, dtype) -> dict:
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def achieved(flops: float, ms: float, rec: dict) -> str:
+    """Achieved TFLOP/s and the share of the bound a kernel time reaches."""
+    return (f"{flops / ms / 1e9:.1f} TFLOP/s, {rec['bound_ms'] / ms:.3f} of "
+            f"the bound ({rec['bound_by']})")
+
+
+def tensor_core_kernels(so: Path) -> dict:
+    """HMMA (tensor-core) instructions, registers and stack bytes of each
+    bf16 attention forward kernel in the built library, from ``cuobjdump
+    -sass`` and ``-res-usage``: {"flash_fwd_kernel_tc<64>": (hmma, regs,
+    stack), ...}."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+
+    def dump(flag):
+        return subprocess.run([str(tool), flag, str(so)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+
+    pat = re.compile(r"(flash_fwd_kernel_tc|short_fwd_kernel_tc)ILi(\d+)E")
+    found, name = {}, None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            m = pat.search(line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if name:
+                found[name] = [0, None, None]
+        elif name and "HMMA" in line:
+            found[name][0] += 1
+    name = None
+    for line in dump("-res-usage").splitlines():
+        m = pat.search(line)
+        if "Function" in line:
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+        elif name in found:
+            regs = re.search(r"REG:(\d+)", line)
+            stack = re.search(r"STACK:(\d+)", line)
+            if regs and stack:
+                found[name][1:] = [int(regs.group(1)), int(stack.group(1))]
+    return {k: tuple(v) for k, v in sorted(found.items())}
+
+
+TC_KERNELS = ("flash_fwd_kernel_tc<128>", "flash_fwd_kernel_tc<64>",
+              "short_fwd_kernel_tc<128>", "short_fwd_kernel_tc<32>",
+              "short_fwd_kernel_tc<64>")
 
 
 def live_mask(torch, bias, lq, lk, causal, q_offset):
@@ -216,64 +284,78 @@ def _engine_bias(torch, n, tp, tctx, dev, g):
 
 
 def phase_flash(torch, flash_fwd, ref_fn, flush, card):
-    """K1 at N=4, H=16, H_kv=8, Tctx=1024 with the engine's bias, and at
-    the training shapes (B=4, H=16, H_kv=4, L=1024, D=64, causal + zero
-    pad bias)."""
+    """K1 at N=4, H=16, H_kv=8, Tctx=1024 with the engine's bias, at the
+    training shapes (B=4, H=16, H_kv=4, L=1024, D=64, causal + zero pad
+    bias), and at the contract's edges in bf16 and fp32: ragged lengths,
+    D=64 causal, fully masked rows (output 0, lse -1e30)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(12)
+    bf, f32 = torch.bfloat16, torch.float32
     main = None
-    cases = [  # (label, n, h, h_kv, lq, lk, d, dtype, bias?, causal)
-        ("Tp=512 engine bias", 4, 16, 8, 512, 1024, 128, torch.bfloat16,
-         True, False),
-        ("Tp=32 engine bias", 4, 16, 8, 32, 1024, 128, torch.bfloat16,
-         True, False),
-        ("Tp=512 engine bias", 4, 16, 8, 512, 1024, 128, torch.float32,
-         True, False),
-        ("ragged Lq=37 Lk=1000", 4, 16, 8, 37, 1000, 128, torch.bfloat16,
-         True, False),
-        ("causal flag", 4, 16, 8, 512, 1024, 128, torch.bfloat16, False,
+    cases = [  # (label, n, h, h_kv, lq, lk, d, dtype, bias kind, causal)
+        ("Tp=512 engine bias", 4, 16, 8, 512, 1024, 128, bf, "engine",
+         False),
+        ("Tp=32 engine bias", 4, 16, 8, 32, 1024, 128, bf, "engine", False),
+        ("Tp=512 engine bias", 4, 16, 8, 512, 1024, 128, f32, "engine",
+         False),
+        ("ragged Lq=37 Lk=1000", 4, 16, 8, 37, 1000, 128, bf, "engine",
+         False),
+        ("ragged Lq=37 Lk=1000", 4, 16, 8, 37, 1000, 128, f32, "engine",
+         False),
+        ("causal flag", 4, 16, 8, 512, 1024, 128, bf, None, True),
+        ("D=64 causal", 4, 16, 8, 300, 300, 64, f32, None, True),
+        ("D=64 causal", 4, 16, 8, 300, 300, 64, bf, None, True),
+        ("masked rows", 4, 16, 4, 200, 333, 64, bf, "masked", False),
+        ("masked rows", 4, 16, 8, 100, 260, 128, f32, "masked", False),
+        ("training causal+pad bias", 4, 16, 4, 1024, 1024, 64, bf, "pad",
          True),
-        ("D=64 causal", 4, 16, 8, 300, 300, 64, torch.float32, False, True),
-        ("training causal+pad bias", 4, 16, 4, 1024, 1024, 64,
-         torch.bfloat16, True, True),
     ]
-    for label, n, h, h_kv, lq, lk, d, dtype, with_bias, causal in cases:
+    neg = float(torch.finfo(torch.float32).min)
+    for label, n, h, h_kv, lq, lk, d, dtype, kind, causal in cases:
         q = torch.randn(n, h, lq, d, device=dev, generator=g).to(dtype)
         k = torch.randn(n, h_kv, lk, d, device=dev, generator=g).to(dtype)
         v = torch.randn(n, h_kv, lk, d, device=dev, generator=g).to(dtype)
         bias = None
-        if with_bias and causal:      # the decoder's all-ones pad mask
+        if kind == "pad":             # the decoder's all-ones pad mask
             bias = torch.zeros(n, 1, 1, lk, device=dev)
-        elif with_bias and lq <= lk - 64:
+        elif kind == "engine":
             bias = _engine_bias(torch, n, lq, lk, dev, g)
-        elif with_bias:
+        elif kind == "masked":        # random masking, rows 7 and 8 dead
             bias = torch.randn(n, 1, lq, lk, device=dev, generator=g)
+            bias[bias > 1.0] = neg
+            bias[:, :, 7:9] = neg
         out, lse = flash_fwd(q, k, v, bias, causal=causal)
         torch.cuda.synchronize()
         ref, ref_lse = ref_fn(q, k, v, bias, causal=causal)
         err = float((out.float() - ref.float()).abs().max())
         lse_err = float((lse - ref_lse).abs().max())
-        atol = FP32_ATOL if dtype == torch.float32 else bf16_atol(ref)
+        atol = FP32_ATOL if dtype == f32 else attn_bf16_atol(ref, v)
         check(err <= atol, f"K1 {label} {dtype}: max err {err} > {atol}")
         check(lse_err <= 1e-3, f"K1 {label}: lse err {lse_err}")
+        if kind == "masked":
+            check(bool(torch.all(out[:, :, 7:9] == 0))
+                  and bool(torch.all(lse[:, :, 7:9] == -1e30)),
+                  f"K1 {label} {dtype}: a fully masked row is not 0 / -1e30")
         ms = cuda_ms(lambda: flash_fwd(q, k, v, bias, causal=causal), flush,
                      iters=10)
         plain_ms = cuda_ms(lambda: ref_fn(q, k, v, bias, causal=causal),
                            flush, iters=10)
+        flops = 4 * d * live_pairs(torch, bias, n, h, lq, lk, causal)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, **bound(
+                       flops, nbytes(q, k, v, bias, out, lse), dtype))
         phase(f"K1 flash_fwd {label} D={d} {str(dtype)[6:]}: "
               f"max_abs_err={err} lse_err={lse_err} (atol {atol}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+              f"kernel {ms:.4f} ms ({achieved(flops, ms, rec)}), plain "
+              f"{plain_ms:.4f} ms [{card}]")
         if main is None:
             mask = sdpa_mask(torch, bias, lq, lk, causal, None, dtype)
-            lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=h != h_kv), flush,
+            rec["library_ms"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=h != h_kv), flush,
                 iters=10)
-            pairs = live_pairs(torch, bias, n, h, lq, lk, causal)
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, **bound(
-                            4 * d * pairs, nbytes(q, k, v, bias, out, lse),
-                            dtype))
-            phase(f"K1 main case: SDPA {lib_ms:.4f} ms, bound "
+            main = rec
+            phase(f"K1 main case: SDPA {rec['library_ms']:.4f} ms, bound "
                   f"{main['bound_ms']:.4f} ms ({main['bound_by']})")
     return main
 
@@ -729,7 +811,8 @@ def phase_short(torch, sa, fa, flush, card):
     """K5/K6/K7 against their plain versions at the ViT shapes (packed
     [128, 197, 2304] and [32, 197, 2304], bf16), the MLM shapes (B=64 L=128
     and B=16 L=512, H=12, D=64, bf16 key-pad bias, batch row 0 with every
-    key padded) and the edges (odd H, D=32 and 128, L=8 and 512, fp32);
+    key padded) and the edges (odd H, D=32 and 128, L=8, 300 and 512, bf16
+    and fp32);
     each beside SDPA (forward, and its backward through autograd) and K1
     at the same unpacked shapes."""
     dev = torch.device("cuda")
@@ -743,7 +826,10 @@ def phase_short(torch, sa, fa, flush, card):
         ("MLM S=128 B=64", 64, 12, 128, 64, bf, True, False),
         ("MLM S=512 B=16", 16, 12, 512, 64, bf, True, False),
         ("odd H=5 D=32 L=8", 4, 5, 8, 32, f32, True, False),
+        ("odd H=5 D=32 L=8", 4, 5, 8, 32, bf, True, False),
+        ("odd H=3 D=32 L=300", 8, 3, 300, 32, bf, True, False),
         ("D=128 L=512", 2, 4, 512, 128, f32, True, False),
+        ("D=128 L=512", 2, 4, 512, 128, bf, True, False),
         ("odd H=3 D=128 L=100 packed", 3, 3, 100, 128, bf, False, True),
     ]
     found = {}
@@ -772,8 +858,8 @@ def phase_short(torch, sa, fa, flush, card):
         torch.cuda.synchronize()
         ref, _ = ref_fwd()
         err = float((out.float() - ref.float()).abs().max())
-        atol = FP32_ATOL if dtype == f32 else bf16_atol(ref)
-        check(err <= atol, f"K5/K6 {label}: max err {err} > {atol}")
+        atol = FP32_ATOL if dtype == f32 else attn_bf16_atol(ref, v)
+        check(err <= atol, f"K5/K6 {label} {dtype}: max err {err} > {atol}")
         out4 = out.view(b, l, h, d).transpose(1, 2) if packed else out
         if pad:   # a row whose keys are all padded: the mean of V
             mean_v = v[0].float().mean(dim=1, keepdim=True)
@@ -816,6 +902,7 @@ def phase_short(torch, sa, fa, flush, card):
                        library_ms=t["fwd SDPA"], **bound(
                            4 * d * pairs, nbytes(q, k, v, bias, out, stats),
                            dtype))
+        rate = achieved(4 * d * pairs, t["fwd"], fwd_rec)
         bwd_rec = dict(max_abs_err=g_err, ms=t["bwd"],
                        plain_ms=t["bwd plain"], library_ms=t["bwd SDPA"],
                        **bound(10 * d * pairs, nbytes(
@@ -824,6 +911,7 @@ def phase_short(torch, sa, fa, flush, card):
               f"fwd max_abs_err={err:.3g} (atol {atol:.3g}), bwd "
               f"{g_err:.3g}; " + ", ".join(f"{n} {ms:.4f} ms"
                                           for n, ms in t.items())
+              + f"; fwd {rate}"
               + f"; bounds fwd {fwd_rec['bound_ms']:.4f} ms "
               f"({fwd_rec['bound_by']}), bwd {bwd_rec['bound_ms']:.4f} ms "
               f"({bwd_rec['bound_by']}) [{card}]")
@@ -1200,6 +1288,14 @@ def main():
     _build.library()
     phase(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds} s)")
+    tc = tensor_core_kernels(_build.path)
+    phase("bf16 attention forwards (HMMA instructions, registers, stack "
+          f"bytes): {tc}")
+    check(sorted(tc) == sorted(TC_KERNELS)
+          and all(hmma > 0 for hmma, _, _ in tc.values()),
+          f"a bf16 attention forward without tensor-core code: {tc}")
+    check(all(stack == 0 for _, _, stack in tc.values()),
+          f"a bf16 attention forward spills: {tc}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     phase("2/16 K4 paged decode vs plain")

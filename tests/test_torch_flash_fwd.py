@@ -123,17 +123,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def bf16_atol(ref: torch.Tensor) -> float:
+def bf16_atol(ref: torch.Tensor, v: torch.Tensor) -> float:
     """Same bf16 inputs on both sides, fp32 reductions: fp32 order (1e-4)
-    plus one bf16 ulp of the output after the final cast."""
-    return 2.0 ** -7 * float(ref.float().abs().max()) + 1e-4
+    plus one bf16 ulp of the output after the final cast (2^-7 of its
+    largest magnitude), plus the kernel's rounding of P to bf16 before P.V:
+    at most 2^-9 of each weight, which moves an output by at most 2^-9
+    max|v| (2^-8 leaves a factor of 2)."""
+    return (2.0 ** -7 * float(ref.float().abs().max())
+            + 2.0 ** -8 * float(v.float().abs().max()) + 1e-4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,lq,lk,causal,bias_rows", [
     (128, 64, 256, False, 64), (128, 37, 1000, False, 37),
-    (64, 100, 100, True, 0), (128, 32, 96, True, 1)])
+    (64, 100, 100, True, 0), (128, 32, 96, True, 1),
+    (64, 37, 1000, False, 37), (128, 130, 130, True, 130)])
 def test_kernel_matches_plain_on_card(cuda, dtype, d, lq, lk, causal,
                                       bias_rows):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -145,11 +150,16 @@ def test_kernel_matches_plain_on_card(cuda, dtype, d, lq, lk, causal,
     if bias_rows:
         bias = torch.randn(b, 1, bias_rows, lk, device=cuda, generator=g)
         bias[bias > 1.0] = NEG_INF
+        if bias_rows > 1:
+            bias[:, :, 5] = NEG_INF          # a fully-masked row
     before = flash_attention_fwd.launches
     out, lse = flash_attention_fwd(q, k, v, bias, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == before + 1
     ref, ref_lse = flash_attention_fwd_ref(q, k, v, bias, causal=causal)
-    atol = 1e-4 if dtype == torch.float32 else bf16_atol(ref)
+    atol = 1e-4 if dtype == torch.float32 else bf16_atol(ref, v)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    if bias_rows > 1:
+        assert torch.all(out[:, :, 5] == 0)
+        assert torch.all(lse[:, :, 5] == -1e30)

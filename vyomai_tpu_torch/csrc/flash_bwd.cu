@@ -386,8 +386,8 @@ static int launch_dkv_d(const BwdArgs& a, void* dk, void* dv,
 static BwdArgs make_args(const void* q, const void* k, const void* v,
                          const void* bias, const void* dout, const void* lse,
                          const void* delta, int B, int H, int H_kv, int Lq,
-                         int Lk, int sb, int sh, int sq, int causal,
-                         int q_offset) {
+                         int Lk, long long sb, long long sh, long long sq,
+                         int causal, int q_offset) {
   return BwdArgs{q, k, v, dout, (const float*)bias, (const float*)lse,
                  (const float*)delta, B, H, H_kv, Lq, Lk, sb, sh, sq,
                  causal, q_offset};
@@ -400,9 +400,9 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* dout, const void* lse,
                                    const void* delta, void* dq, int B, int H,
                                    int H_kv, int Lq, int Lk, int D,
-                                   int bias_sb, int bias_sh, int bias_sq,
-                                   int causal, int q_offset, int is_bf16,
-                                   void* stream) {
+                                   long long bias_sb, long long bias_sh,
+                                   long long bias_sq, int causal,
+                                   int q_offset, int is_bf16, void* stream) {
   using namespace vyomai;
   if ((D != 64 && D != 128) || H % H_kv) return (int)cudaErrorInvalidValue;
   const BwdArgs a = make_args(q, k, v, bias, dout, lse, delta, B, H, H_kv,
@@ -421,9 +421,10 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* dout, const void* lse,
                                     const void* delta, void* dk, void* dv,
                                     int B, int H, int H_kv, int Lq, int Lk,
-                                    int D, int bias_sb, int bias_sh,
-                                    int bias_sq, int causal, int q_offset,
-                                    int is_bf16, void* stream) {
+                                    int D, long long bias_sb,
+                                    long long bias_sh, long long bias_sq,
+                                    int causal, int q_offset, int is_bf16,
+                                    void* stream) {
   using namespace vyomai;
   if ((D != 64 && D != 128) || H % H_kv) return (int)cudaErrorInvalidValue;
   const BwdArgs a = make_args(q, k, v, bias, dout, lse, delta, B, H, H_kv,

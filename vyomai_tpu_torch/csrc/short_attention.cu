@@ -18,28 +18,40 @@
 // per head, p = exp(s - max), normalisation after the PV sum. A query row
 // whose keys are all padded (every score ~ finfo(fp32).min) gets a uniform
 // softmax, the mean of V, as the TPU kernel and the "xla" route give; no
-// -1e30 floor (that is the flash kernels' contract, not this one).
-//
-// What bounds them on the H100: arithmetic. Attention at L <= 512 does 4*D
-// FLOPs per (query, key) pair in the forward and 8*D in the backward, on
-// operands reused across 64x64 tiles. This first version runs the dots as
-// fp32 FMAs on the CUDA cores (the TPU kernels also cast to fp32), capped
-// well below the tensor cores' rate; mma/wgmma is the next step.
-//
-// Forward design: one CTA of 128 threads per (64-row q tile, head, batch).
-// The q tile is staged once in shared memory as fp32. Pass 1 streams 64-key
-// K tiles and writes the tile's whole fp32 score block [64][Lpad+1] to
-// shared memory (at most 64 x 513 floats, 131 KB at L = 512; the TPU held a
-// whole image's q/k/v in VMEM, a Hopper block has 227 KB), tracking each
-// row's max; then each row's exp and sum; pass 2 streams 64-key V tiles and
-// accumulates p.V in registers. Each thread owns 8 rows x 4 columns of a
-// 64x64 score tile and 8 rows x D/16 output columns, so row reductions are
-// 16-lane shuffles. The forward also writes each row's (max, sum) when the
+// -1e30 floor (that is the flash kernels' contract, not this one). The
+// forward also writes each row's (final max, sum of exp(s - max)) when the
 // caller asks, so the backward recomputes P = exp(s - max) / sum tile by
 // tile with no [L, L] residual.
 //
-// Backward design (K2/K3's decomposition, no atomics, deterministic): the
-// wrapper computes delta = rowsum(dO * O) (= rowsum(dP * P)); then
+// What bounds them on the H100: 4*D FLOPs per (query, key) pair forward
+// and 8*D backward, on operands reused across 64x64 tiles. At D = 64 and
+// L = 128 or 197 (MLM, ViT) the bf16 forward's bytes (q, k, v read once, o
+// written once) take longer at 3.35 TB/s than its products at the tensor
+// cores' rate; at L = 512, and for the backward, arithmetic binds.
+//
+// The forward launcher picks the kernel by dtype. This is a dispatch, not a
+// fallback: each path raises (a non-zero cudaError_t) on failure, and a bf16
+// tensor never reaches the CUDA-core forward.
+//
+// - bf16 forward: `short_fwd_kernel_tc`, the tensor-core core of
+//   attn_fwd_tc.cuh in one pass (mma.sync m16n8k16, ldmatrix, a cp.async
+//   double-buffered K/V ring, online softmax in registers with the running
+//   max starting at -inf, P in bf16): no score block in shared memory, 40
+//   KB of it at D = 64. One CTA of 4 warps per (64-row q tile, head,
+//   batch); a warp whose 16 rows lie past L only helps load.
+// - fp32 forward: `short_fwd_kernel`, fp32 FMAs on the CUDA cores (tensor
+//   cores would round fp32 inputs to TF32). One CTA of 128 threads per
+//   (64-row q tile, head, batch). The q tile is staged once in shared
+//   memory as fp32. Pass 1 streams 64-key K tiles and writes the tile's
+//   whole fp32 score block [64][Lpad+1] to shared memory (at most 64 x 513
+//   floats), tracking each row's max; then each row's exp and sum; pass 2
+//   streams 64-key V tiles and accumulates p.V in registers. Each thread
+//   owns 8 rows x 4 columns of a 64x64 score tile and 8 rows x D/16 output
+//   columns, so row reductions are 16-lane shuffles.
+//
+// Backward design (K2/K3's decomposition, no atomics, deterministic; CUDA
+// cores for both dtypes): the wrapper computes delta = rowsum(dO * O) (=
+// rowsum(dP * P)); then
 // - dq: one CTA of 256 threads per (64-row q tile, head, batch) stages q and
 //   dO, walks the K/V tiles, forms dS = P * (dP - delta) / sqrt(D) in shared
 //   memory and accumulates dq = dS.K in registers;
@@ -47,13 +59,12 @@
 //   q tiles and accumulates dk = dS^T.q and dv = P^T.dO in registers.
 // Tiles are staged as fp32 in rows padded to D+1 floats (the column walks
 // then hit distinct banks) with 16-byte vector loads. Shared memory: the
-// forward 4*(2*64*(D+1) + 64*(Lpad+1)) bytes (99 KB at L = 197, D = 64;
-// 197 KB at L = 512, D = 128); dq 4*(4*64*(D+1) + 64*65) (83 KB at D = 64,
-// 149 KB at D = 128); dk/dv that plus a second 64x65 tile and three row
-// vectors (100 KB, 166 KB). All above 48 KB, so the launchers raise the
-// dynamic limit.
+// fp32 forward 4*(2*64*(D+1) + 64*(Lpad+1)) bytes (up to 197 KB at L = 512,
+// D = 128); dq 4*(4*64*(D+1) + 64*65) (83 KB at D = 64, 149 KB at D = 128);
+// dk/dv that plus a second 64x65 tile and three row vectors (100 KB, 166
+// KB). All above 48 KB, so the launchers raise the dynamic limit.
 
-#include "common.cuh"
+#include "attn_fwd_tc.cuh"
 
 namespace vyomai {
 
@@ -115,9 +126,51 @@ __device__ __forceinline__ void sa_stage(const T* __restrict__ src,
 
 // ---------------------------------------------------------------- forward
 
-template <typename T, int D>
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, tc::min_ctas<D>())
+short_fwd_kernel_tc(SaArgs a, tc::bf16* __restrict__ out,
+                    float* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  tc::bf16* smem = reinterpret_cast<tc::bf16*>(tc_smem);
+  const int L = a.L, qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * kSaT;
+  const long long head = (long long)b * a.sb + (long long)h * a.sh;
+  // one key-pad row for every q row; the launcher checked its alignment
+  const tc::BiasTile bt{
+      a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb, 0, 1, 1, L};
+
+  tc::FwdAcc<D> acc;
+  tc::fwd_core<D, false>((const tc::bf16*)a.q + head, a.sr,
+                         (const tc::bf16*)a.k + head,
+                         (const tc::bf16*)a.v + head, a.sr, L, L, q0,
+                         sa_lpad(L) / kSaT, (float)(1.0 / sqrt((double)D)),
+                         0, 0, bt, smem, acc);
+
+  const int wrow = q0 + (threadIdx.x >> 5) * 16, lane = threadIdx.x & 31;
+  if (wrow >= L) return;   // a tail warp: no live row
+  const int r0 = wrow + (lane >> 2);
+  // every live row has a key at its max, so its sum is at least 1
+  const float inv_l[2] = {1.f / acc.l[0], 1.f / acc.l[1]};
+  if (stats != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r < L)
+        *reinterpret_cast<float2*>(
+            stats + (((long long)b * a.H + h) * L + r) * 2) =
+            make_float2(acc.m[i], acc.l[i]);
+    }
+  }
+  tc::store_rows<D>(acc, inv_l, smem,
+                    out + (long long)b * a.ob + (long long)h * a.oh, a.orow,
+                    q0, L);
+}
+
+// fp32 on the CUDA cores: two passes over a whole score block
+template <int D>
 __global__ void __launch_bounds__(kSaFwdThreads)
-short_fwd_kernel(SaArgs a, T* __restrict__ out, float* __restrict__ stats) {
+short_fwd_kernel(SaArgs a, float* __restrict__ out,
+                 float* __restrict__ stats) {
   constexpr int NT = kSaFwdThreads, LD = D + 1, DJ = D / 16;
   const int L = a.L, LDS = sa_lpad(L) + 1, nk = sa_lpad(L) / kSaT;
   extern __shared__ float smem[];
@@ -129,13 +182,13 @@ short_fwd_kernel(SaArgs a, T* __restrict__ out, float* __restrict__ stats) {
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = qt * kSaT;
   const long long head = (long long)b * a.sb + (long long)h * a.sh;
-  const T* qb = (const T*)a.q + head;
-  const T* kb = (const T*)a.k + head;
-  const T* vb = (const T*)a.v + head;
+  const float* qb = (const float*)a.q + head;
+  const float* kb = (const float*)a.k + head;
+  const float* vb = (const float*)a.v + head;
   const float* bb = a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb;
   const float scale = (float)(1.0 / sqrt((double)D));
 
-  sa_stage<T, D, NT>(qb, a.sr, q0, L, qs, tid);
+  sa_stage<float, D, NT>(qb, a.sr, q0, L, qs, tid);
   float mx[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) mx[i] = -INFINITY;
@@ -144,7 +197,7 @@ short_fwd_kernel(SaArgs a, T* __restrict__ out, float* __restrict__ stats) {
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kSaT;
     __syncthreads();                  // previous K tile fully consumed
-    sa_stage<T, D, NT>(kb, a.sr, k0, L, kvs, tid);
+    sa_stage<float, D, NT>(kb, a.sr, k0, L, kvs, tid);
     __syncthreads();
     float s[8][4];
 #pragma unroll
@@ -212,7 +265,7 @@ short_fwd_kernel(SaArgs a, T* __restrict__ out, float* __restrict__ stats) {
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kSaT;
     __syncthreads();                  // p rows and the previous tile ready
-    sa_stage<T, D, NT>(vb, a.sr, k0, L, kvs, tid);
+    sa_stage<float, D, NT>(vb, a.sr, k0, L, kvs, tid);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < kSaT; ++c) {
@@ -228,15 +281,14 @@ short_fwd_kernel(SaArgs a, T* __restrict__ out, float* __restrict__ stats) {
     }
   }
 
-  T* ob = out + (long long)b * a.ob + (long long)h * a.oh;
+  float* ob = out + (long long)b * a.ob + (long long)h * a.oh;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = q0 + ty * 8 + i;
     if (r >= L) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      ob[(long long)r * a.orow + tx + 16 * j] =
-          from_float<T>(o[i][j] / lsum[i]);
+      ob[(long long)r * a.orow + tx + 16 * j] = o[i][j] / lsum[i];
   }
 }
 
@@ -489,15 +541,28 @@ static cudaError_t sa_smem_limit(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
+template <int D>
 static int sa_fwd_d(const SaArgs& a, int B, void* out, float* stats,
-                    cudaStream_t st) {
-  const size_t smem = sa_fwd_smem<D>(a.L);
-  cudaError_t err = sa_smem_limit(short_fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
+                    bool bf16, cudaStream_t st) {
+  static_assert(tc::kThreads == kSaFwdThreads, "one block size");
   const dim3 grid(sa_lpad(a.L) / kSaT, a.H, B);
-  short_fwd_kernel<T, D><<<grid, kSaFwdThreads, smem, st>>>(a, (T*)out,
-                                                            stats);
+  cudaError_t err;
+  if (bf16) {   // the bias ring reads a 16-byte aligned row
+    if (a.bias != nullptr && (((uintptr_t)a.bias & 15) || a.bias_sb % 4))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = tc::smem_bytes<D>() +
+                        (a.bias == nullptr ? 0 : tc::bias_smem_bytes(1));
+    err = sa_smem_limit(short_fwd_kernel_tc<D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    short_fwd_kernel_tc<D><<<grid, kSaFwdThreads, smem, st>>>(
+        a, (tc::bf16*)out, stats);
+  } else {
+    const size_t smem = sa_fwd_smem<D>(a.L);
+    err = sa_smem_limit(short_fwd_kernel<D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    short_fwd_kernel<D><<<grid, kSaFwdThreads, smem, st>>>(a, (float*)out,
+                                                           stats);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -545,15 +610,10 @@ extern "C" int short_fwd_launch(const void* q, const void* k, const void* v,
                            orow);
   cudaStream_t st = (cudaStream_t)stream;
   float* sp = (float*)stats;
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    if (D == 32) return sa_fwd_d<T, 32>(a, B, out, sp, st);
-    if (D == 64) return sa_fwd_d<T, 64>(a, B, out, sp, st);
-    return sa_fwd_d<T, 128>(a, B, out, sp, st);
-  }
-  if (D == 32) return sa_fwd_d<float, 32>(a, B, out, sp, st);
-  if (D == 64) return sa_fwd_d<float, 64>(a, B, out, sp, st);
-  return sa_fwd_d<float, 128>(a, B, out, sp, st);
+  const bool bf16 = is_bf16 != 0;
+  if (D == 32) return sa_fwd_d<32>(a, B, out, sp, bf16, st);
+  if (D == 64) return sa_fwd_d<64>(a, B, out, sp, bf16, st);
+  return sa_fwd_d<128>(a, B, out, sp, bf16, st);
 }
 
 extern "C" int short_bwd_launch(const void* q, const void* k, const void* v,

@@ -34,14 +34,14 @@ _SIGNATURES = {
     # stream
     "int4_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
     # q, k, v, bias, out, lse, B, H, H_kv, Lq, Lk, D, bias strides (b, h,
-    # q), causal, q_offset, is_bf16, stream
-    "flash_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _P],
+    # q; 64-bit), causal, q_offset, is_bf16, stream
+    "flash_fwd_launch": [_P] * 6 + [_I] * 6 + [_LL] * 3 + [_I] * 3 + [_P],
     # q, k, v, bias, dout, lse, delta, dq, B, H, H_kv, Lq, Lk, D, bias
-    # strides (b, h, q), causal, q_offset, is_bf16, stream
-    "flash_bwd_dq_launch": [_P] * 8 + [_I] * 12 + [_P],
+    # strides (b, h, q; 64-bit), causal, q_offset, is_bf16, stream
+    "flash_bwd_dq_launch": [_P] * 8 + [_I] * 6 + [_LL] * 3 + [_I] * 3 + [_P],
     # q, k, v, bias, dout, lse, delta, dk, dv, then as flash_bwd_dq_launch
-    "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 12 + [_P],
+    "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 6 + [_LL] * 3 + [_I] * 3
+    + [_P],
     # q, k, v, bias, bias batch stride, out, stats, B, H, L, D, q/k/v
     # strides (b, h, row), out strides (b, h, row), is_bf16, stream
     "short_fwd_launch": [_P] * 4 + [_LL] + [_P] * 2 + [_I] * 4 + [_LL] * 6
@@ -54,6 +54,7 @@ _SIGNATURES = {
 
 _LIB = None
 build_seconds = None   # wall time of this process's build (None = not built)
+path = None            # the loaded library's file (None = not loaded)
 
 
 def _nvcc() -> str:
@@ -85,7 +86,7 @@ def _run_all(cmds) -> None:
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on the first call."""
-    global _LIB, build_seconds
+    global _LIB, build_seconds, path
     if _LIB is not None:
         return _LIB
     sources = sorted(CSRC.glob("*.cu"))
@@ -117,7 +118,7 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.vyomai_error_string.argtypes = [ctypes.c_int]
     lib.vyomai_error_string.restype = ctypes.c_char_p
-    _LIB = lib
+    _LIB, path = lib, so
     return lib
 
 

@@ -25,7 +25,10 @@ the plain versions here:
 
 Each wrapper routes a CPU tensor to its plain version and launches its
 kernel for a CUDA tensor, raising on what the kernel does not take; there
-is no fallback between the two.
+is no fallback between the two. On the card the forward dispatches by
+dtype: bf16 runs on the tensor cores (``flash_fwd_kernel_tc``: P is
+rounded to bf16 before the value product), fp32 on the CUDA cores
+(``flash_fwd_kernel``); either raises on failure.
 """
 
 from typing import Optional
@@ -171,6 +174,20 @@ def _validate(name: str, q, k, v, bias, *others):
                  for i in range(3))
 
 
+def _aligned_bias(bias):
+    """``bias`` as the tensor-core forward reads it: 16-byte aligned rows
+    (every stride of a non-broadcast dim a multiple of 4 floats). Else a
+    copy whose rows are padded to 4 floats, viewed back to ``Lk``."""
+    if bias is None or (bias.data_ptr() % 16 == 0 and all(
+            bias.shape[i] == 1 or bias.stride(i) % 4 == 0 for i in range(3))):
+        return bias
+    lk = bias.shape[3]
+    padded = torch.zeros((*bias.shape[:3], -(-lk // 4) * 4),
+                         dtype=bias.dtype, device=bias.device)
+    padded[..., :lk] = bias
+    return padded[..., :lk]
+
+
 def supported(q, k, bias=None) -> bool:
     """Whether the kernels take these operands (the ``"auto"`` route's
     test): CUDA tensors of one dtype in bf16/fp32, D 64 or 128, an fp32
@@ -208,6 +225,10 @@ def flash_attention_fwd(q, k, v, bias=None, *, causal: bool = False,
         return flash_attention_fwd_ref(q, k, v, bias, causal=causal,
                                        q_offset=q_offset)
     sb, sh, sq = _validate("flash_attention_fwd", q, k, v, bias)
+    if q.dtype == torch.bfloat16 and bias is not None:
+        bias = _aligned_bias(bias)
+        sb, sh, sq = (0 if bias.shape[i] == 1 else bias.stride(i)
+                      for i in range(3))
     b, h, h_kv, lq, lk, d, q_offset = _dims(q, k, q_offset)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)

@@ -37,7 +37,11 @@ TPU's own: the VMEM budget, and ``supported_packed``'s even head count
 
 Each wrapper routes a CPU tensor to its plain version and launches its
 kernel for a CUDA tensor, raising on what the kernel does not take; there
-is no fallback between the two.
+is no fallback between the two. On the card the forward (K5, K6)
+dispatches by dtype: bf16 runs on the tensor cores in one pass
+(``short_fwd_kernel_tc``: online softmax, P rounded to bf16 before the
+value product), fp32 on the CUDA cores (``short_fwd_kernel``); either
+raises on failure.
 """
 
 import torch
@@ -188,8 +192,12 @@ def _validate(name: str, q, k, v, bias, outs, rows):
     _check(bias.is_cuda and bias.device == q.device and _is_keypad_bias(
         bias, b, l), name, "bias must be a key-pad [B|1, 1, 1, L] on q's "
            "device")
-    b2 = bias.reshape(bias.shape[0], l).to(torch.float32).contiguous()
-    return b2, (l if b2.shape[0] > 1 else 0)
+    # rows padded to 4 floats: the forward's bias ring reads 16-byte rows
+    l4 = -(-l // 4) * 4
+    b2 = torch.zeros((bias.shape[0], l4), dtype=torch.float32,
+                     device=bias.device)
+    b2[:, :l] = bias.reshape(bias.shape[0], l)
+    return b2, (l4 if b2.shape[0] > 1 else 0)
 
 
 def _stream(t):
