@@ -10,7 +10,8 @@ and exits non-zero):
 1. device and set-up: require CUDA, disable TF32, print the card's name and
    power limit, build the CUDA kernels from ``vyomai_tpu_torch/csrc``, and
    count with ``cuobjdump`` the tensor-core (HMMA) instructions and the
-   registers of each bf16 attention forward kernel;
+   registers of each bf16 attention kernel (the forwards K1, K5/K6 and the
+   backward K7);
 2. K4 paged decode against its plain version at the serving shapes;
 3. K1 flash forward against its plain version at the prefill and training
    shapes and the contract's edges (ragged, causal, fully masked rows);
@@ -30,7 +31,8 @@ and exits non-zero):
    loss and every gradient on the card against the CPU, then one AdamW
    step and the params;
 9. K5/K6/K7 (short attention) against their plain versions at the ViT,
-   MLM and edge shapes, beside SDPA and K1 on the same operands;
+   MLM and edge shapes, beside SDPA and K1 on the same operands (K7's bf16
+   bound adds its rounding of P and dS, ``k7_rounding``);
 10. end-to-end ViT-base/16 (``vyomai_tpu_torch.encoder_bench``: 12 layers,
     bf16): forward img/s at B=128, 3 warm-up + 10 timed train steps at
     B=32, on the "auto" (K6/K7) and "xla" routes;
@@ -119,8 +121,8 @@ def attn_bf16_atol(ref, v) -> float:
     """A bf16 attention forward (K1, K5, K6) against its plain version:
     ``bf16_atol``, plus the tensor-core kernels' rounding of P to bf16
     before P.V (the plain versions keep it fp32). That moves each weight by
-    at most 2^-9 of itself, so an output by at most 2^-9 max|v|; 2^-8
-    leaves a factor of 2."""
+    at most 2^-8 of itself (bf16's unit roundoff), so an output, a
+    normalised sum of weights times v, by at most 2^-8 max|v|."""
     return bf16_atol(ref) + 2.0 ** -8 * float(v.float().abs().max())
 
 
@@ -156,9 +158,9 @@ def achieved(flops: float, ms: float, rec: dict) -> str:
 
 def tensor_core_kernels(so: Path) -> dict:
     """HMMA (tensor-core) instructions, registers and stack bytes of each
-    bf16 attention forward kernel in the built library, from ``cuobjdump
-    -sass`` and ``-res-usage``: {"flash_fwd_kernel_tc<64>": (hmma, regs,
-    stack), ...}."""
+    bf16 attention kernel in the built library, from ``cuobjdump -sass``
+    and ``-res-usage``: {"flash_fwd_kernel_tc<64>": (hmma, regs, stack),
+    ...}."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
         "cuobjdump"
 
@@ -166,7 +168,8 @@ def tensor_core_kernels(so: Path) -> dict:
         return subprocess.run([str(tool), flag, str(so)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
 
-    pat = re.compile(r"(flash_fwd_kernel_tc|short_fwd_kernel_tc)ILi(\d+)E")
+    pat = re.compile(r"(flash_fwd_kernel_tc|short_fwd_kernel_tc|"
+                     r"short_bwd_dq_kernel_tc|short_bwd_dkv_kernel_tc)ILi(\d+)E")
     found, name = {}, None
     for line in dump("-sass").splitlines():
         if "Function :" in line:
@@ -191,7 +194,10 @@ def tensor_core_kernels(so: Path) -> dict:
 
 TC_KERNELS = ("flash_fwd_kernel_tc<128>", "flash_fwd_kernel_tc<64>",
               "short_fwd_kernel_tc<128>", "short_fwd_kernel_tc<32>",
-              "short_fwd_kernel_tc<64>")
+              "short_fwd_kernel_tc<64>", "short_bwd_dq_kernel_tc<128>",
+              "short_bwd_dq_kernel_tc<32>", "short_bwd_dq_kernel_tc<64>",
+              "short_bwd_dkv_kernel_tc<128>", "short_bwd_dkv_kernel_tc<32>",
+              "short_bwd_dkv_kernel_tc<64>")
 
 
 def live_mask(torch, bias, lq, lk, causal, q_offset):
@@ -360,14 +366,57 @@ def phase_flash(torch, flash_fwd, ref_fn, flush, card):
     return main
 
 
-def grad_atol(ref, bf16: bool) -> float:
+def grad_atol(ref, bf16: bool, rounding: float = 0.0) -> float:
     """Kernel vs plain gradients on the same inputs, both reducing in fp32
     (the plain version over the whole key or query range at once): fp32
     summation order over up to group * L terms, bounded by 1e-4 of the
     largest value, plus for bf16 one ulp of the output after the final cast
-    (2^-7 of its largest magnitude)."""
+    (2^-7 of its largest magnitude), plus ``rounding``: what a kernel's own
+    bf16 rounding of an intermediate may move the gradient. For the bf16
+    tensor-core K7 that is ``k7_rounding``'s term, at most 2^-8 max(P^T
+    |dO|) for dV, 2^-8 max(|dS|^T |q|) for dK and 2^-8 max(|dS| |k|) for dQ
+    (P and dS rounded to bf16 before their products)."""
     top = float(ref.float().abs().max())
-    return ((2.0 ** -7 if bf16 else 0.0) + 1e-4) * top + 1e-6
+    return ((2.0 ** -7 if bf16 else 0.0) + 1e-4) * top + 1e-6 + rounding
+
+
+def k7_rounding(torch, q, k, v, bias, do, stats, delta) -> dict:
+    """The bf16 tensor-core K7 rounds P (into dV = P^T.dO) and dS (into dK
+    = dS^T.q and dQ = dS.k) to bf16 before the products, where the plain
+    version keeps them fp32. bf16's unit roundoff is 2^-8, so each rounded
+    value moves by at most 2^-8 of itself and each gradient entry by at
+    most 2^-8 times the sum of |rounded value| x |other operand| along the
+    product: dV[k, d] by 2^-8 sum_q P[q, k] |dO[q, d]|, dK[k, d] by 2^-8
+    sum_q |dS[q, k]| |q[q, d]|, dQ[q, d] by 2^-8 sum_k |dS[q, k]| |k[k,
+    d]|. Returns each term's largest entry {"dq", "dk", "dv"}, from the
+    plain arithmetic in fp32 on the same inputs."""
+    f = [x.float() for x in (q, k, v, do)]
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", f[0], f[1]) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - stats[..., :1]) / stats[..., 1:]
+    del s
+    ds = torch.einsum("bhqd,bhkd->bhqk", f[3], f[2])
+    ds = (p * (ds - delta[..., None]) * scale).abs()
+    u = 2.0 ** -8
+    return {
+        "dq": u * float(torch.einsum("bhqk,bhkd->bhqd", ds, f[1].abs()).max()),
+        "dk": u * float(torch.einsum("bhqk,bhqd->bhkd", ds, f[0].abs()).max()),
+        "dv": u * float(torch.einsum("bhqk,bhqd->bhkd", p, f[3].abs()).max())}
+
+
+def k7_issued_flops(b: int, h: int, l: int, d: int, bf16: bool) -> int:
+    """FLOPs K7's two kernels issue: 2 * D a (query, key) pair for each of
+    their seven products (dq: S, dP, dQ; dk/dv: S^T, dP^T, dV, dK). The
+    tensor-core kernels take the rows of their live warps (L rounded up to
+    16) against the columns of their live sub-steps (L rounded up to 32 in
+    dq, to 16 in dk/dv); the CUDA-core ones every pair of 64-row tiles."""
+    def up(n):
+        return -(-l // n) * n
+    if bf16:
+        return 2 * d * b * h * up(16) * (3 * up(32) + 4 * up(16))
+    return 14 * d * b * h * up(64) ** 2
 
 
 def phase_flash_bwd(torch, fa, flush, card):
@@ -872,14 +921,17 @@ def phase_short(torch, sa, fa, flush, card):
                                      grads=grads)
         torch.cuda.synchronize()
         want = sa.short_attention_bwd_ref(q, k, v, bias, do, stats, delta)
-        g_err = 0.0
+        rounding = (k7_rounding(torch, q, k, v, bias, do, stats, delta)
+                    if dtype == bf else {})
+        g_err, g_txt = 0.0, []
         for name, x, w in zip(("dq", "dk", "dv"), got, want):
             e = float((x.float() - w.float()).abs().max())
             check(bool(torch.isfinite(x).all()), f"K7 {label}: {name} not "
                   "finite")
-            a = grad_atol(w, dtype == bf)
+            a = grad_atol(w, dtype == bf, rounding.get(name, 0.0))
             check(e <= a, f"K7 {label}: {name} max err {e} > {a}")
             g_err = max(g_err, e)
+            g_txt.append(f"{name} {e:.3g} (atol {a:.3g})")
         mask = None if bias is None else bias.to(dtype)
         t = {"fwd": cuda_ms(fwd, flush, 10),
              "fwd plain": cuda_ms(ref_fwd, flush, 10),
@@ -907,11 +959,15 @@ def phase_short(torch, sa, fa, flush, card):
                        plain_ms=t["bwd plain"], library_ms=t["bwd SDPA"],
                        **bound(10 * d * pairs, nbytes(
                            q, k, v, do, stats, delta, bias, *got), dtype))
+        issued = k7_issued_flops(b, h, l, d, dtype == bf)
         phase(f"K5/K6/K7 short {label} H={h} L={l} D={d} {str(dtype)[6:]}: "
               f"fwd max_abs_err={err:.3g} (atol {atol:.3g}), bwd "
-              f"{g_err:.3g}; " + ", ".join(f"{n} {ms:.4f} ms"
-                                          for n, ms in t.items())
-              + f"; fwd {rate}"
+              + ", ".join(g_txt) + "; "
+              + ", ".join(f"{n} {ms:.4f} ms" for n, ms in t.items())
+              + f"; fwd {rate}; bwd {issued / t['bwd'] / 1e9:.1f} TFLOP/s "
+              f"issued ({issued} FLOP), {10 * d * pairs / t['bwd'] / 1e9:.1f} "
+              f"on live pairs, {bwd_rec['bound_ms'] / t['bwd']:.3f} of the "
+              f"bound"
               + f"; bounds fwd {fwd_rec['bound_ms']:.4f} ms "
               f"({fwd_rec['bound_by']}), bwd {bwd_rec['bound_ms']:.4f} ms "
               f"({bwd_rec['bound_by']}) [{card}]")
@@ -1289,13 +1345,13 @@ def main():
     phase(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds} s)")
     tc = tensor_core_kernels(_build.path)
-    phase("bf16 attention forwards (HMMA instructions, registers, stack "
+    phase("bf16 attention kernels (HMMA instructions, registers, stack "
           f"bytes): {tc}")
     check(sorted(tc) == sorted(TC_KERNELS)
           and all(hmma > 0 for hmma, _, _ in tc.values()),
-          f"a bf16 attention forward without tensor-core code: {tc}")
+          f"a bf16 attention kernel without tensor-core code: {tc}")
     check(all(stack == 0 for _, _, stack in tc.values()),
-          f"a bf16 attention forward spills: {tc}")
+          f"a bf16 attention kernel spills: {tc}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     phase("2/16 K4 paged decode vs plain")

@@ -15,8 +15,8 @@ compare the kernels with, under the card's bf16 tolerance
     atol = 2^-7 max|ref| + 2^-8 max|v| + 1e-4:
 
 one bf16 ulp of the output after the final cast, plus the rounding of P
-(at most 2^-9 of each weight, so at most 2^-9 max|v| on an output; 2^-8
-leaves a factor of 2), plus fp32 summation order. Before the final cast the
+(at most 2^-8 of each weight, bf16's unit roundoff, so at most 2^-8 max|v|
+on an output), plus fp32 summation order. Before the final cast the
 emulation stays within the P term alone. The contracts hold too: a fully
 masked K1 row gives 0 and lse -1e30, a K5 row whose keys are all padded
 gives the mean of V. Last, the C launchers' declared signatures match their

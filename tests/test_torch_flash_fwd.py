@@ -127,8 +127,8 @@ def bf16_atol(ref: torch.Tensor, v: torch.Tensor) -> float:
     """Same bf16 inputs on both sides, fp32 reductions: fp32 order (1e-4)
     plus one bf16 ulp of the output after the final cast (2^-7 of its
     largest magnitude), plus the kernel's rounding of P to bf16 before P.V:
-    at most 2^-9 of each weight, which moves an output by at most 2^-9
-    max|v| (2^-8 leaves a factor of 2)."""
+    at most 2^-8 of each weight (bf16's unit roundoff), which moves an
+    output by at most 2^-8 max|v|."""
     return (2.0 ** -7 * float(ref.float().abs().max())
             + 2.0 ** -8 * float(v.float().abs().max()) + 1e-4)
 

@@ -170,6 +170,49 @@ def test_engine_greedy_matches_jax(model_params, kind):
     assert m["pool_bytes"] == kv.numel() + 4 * sc.numel()
 
 
+def test_quantized_prefill_attends_the_fp32_context(monkeypatch):
+    """A bf16 prefill through an int8 pool attends bf16 q against the
+    fp32 dequantized context, as the JAX prefill does (its einsum casts
+    both to fp32): each layer's attention equals fp64 attention over the
+    context that ``gather_kv`` returned, within fp32 rounding, not within
+    the bf16 rounding of that context."""
+    model = tt.ModelForCausalLM(TCFG, device="cpu", dtype=torch.bfloat16)
+    model.init(torch.Generator().manual_seed(4)).requires_grad_(False)
+    pool = tpm.init_pool(TCFG, NB, BS, dtype=torch.int8, device="cpu")
+    seen, contexts = [], []
+    gather, attend = tpm.gather_kv, tpm.flash_attention_fwd
+
+    def gather_rec(*args):
+        got = gather(*args)
+        contexts.append(got)
+        return got
+
+    def attend_rec(q, k, v, bias, **kw):
+        got = attend(q, k, v, bias, **kw)
+        seen.append((q, bias, got[0]))
+        return got
+
+    monkeypatch.setattr(tpm, "gather_kv", gather_rec)
+    monkeypatch.setattr(tpm, "flash_attention_fwd", attend_rec)
+    rng = np.random.default_rng(3)
+    lanes = [(rng.integers(0, 512, 9).tolist(), 0, [3, 5, 10]),
+             (rng.integers(0, 512, 6).tolist(), 0, [8, 1])]
+    tpm.prefill(model, pool, *map(torch.from_numpy,
+                                  _prefill_inputs(lanes, 12)))
+    assert len(seen) == TCFG.num_hidden_layers == len(contexts)
+    group = TCFG.num_attention_heads // TCFG.num_key_value_heads
+    for (q, bias, out), (kk, vv) in zip(seen, contexts):
+        assert kk.dtype == torch.float32
+        s = torch.einsum("nhtd,nhsd->nhts", q.double(),
+                         kk.double().repeat_interleave(group, dim=1))
+        s = s / TCFG.head_dim ** 0.5 + bias.double()
+        want = torch.einsum("nhts,nhsd->nhtd", torch.softmax(s, dim=-1),
+                            vv.double().repeat_interleave(group, dim=1))
+        live = (bias > -1e30).any(dim=-1).expand(want.shape[:3])
+        err = (out.double() - want).abs()[live].max()
+        assert err <= 1e-5 * want.abs().max(), float(err)
+
+
 @pytest.mark.parametrize("kind", ["int8", "int4"])
 def test_quantize_model_serves_like_the_jax_tree(model_params, kind):
     _, params = model_params

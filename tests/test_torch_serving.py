@@ -380,3 +380,26 @@ def test_engine_abort_and_unported_args(torch_model):
         eng.submit([1, 2], stop=[[3]])
     with pytest.raises(TypeError):
         tt.ContinuousBatchEngine(torch_model, no_such_option=1)
+
+
+def test_engine_cache_aware_admission_is_unported(torch_model):
+    """The JAX engine takes ``cache_aware_admission``; until the port runs
+    it, it raises ``NotImplementedError`` like every other unported
+    feature (not ``TypeError``, as for a name the JAX engine lacks)."""
+    with pytest.raises(NotImplementedError, match="cache_aware_admission"):
+        tt.ContinuousBatchEngine(torch_model, cache_aware_admission=True)
+
+
+@pytest.mark.parametrize("kw,missing", [
+    (dict(num_attention_heads=16, num_key_value_heads=1), "K4 group > 8"),
+    (dict(head_dim=256), "K1/K4 D=256"),
+    (dict(head_dim=32), "K1/K4 D=32")])
+def test_card_config_check_names_the_missing_kernel(kw, missing):
+    """Configs whose attention the card's kernels do not take raise at the
+    engine's construction on the card, naming the missing variant (the
+    plain path on the CPU serves them, so ``QwenConfig`` accepts them)."""
+    from vyomai_tpu_torch.serving.engine import check_card_config
+    with pytest.raises(NotImplementedError, match=missing):
+        check_card_config(tt.QwenConfig(**kw))
+    check_card_config(tt.QwenConfig())
+    check_card_config(tt.QwenConfig(head_dim=64))

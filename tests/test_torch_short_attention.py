@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vyomai_tpu_torch.core.masks import NEG_INF
 from vyomai_tpu_torch.layers import attention as tattn
 from vyomai_tpu_torch.ops import short_attention as sa
@@ -272,8 +273,8 @@ def _atol(ref: torch.Tensor, dtype) -> float:
 
 def _fwd_atol(ref: torch.Tensor, v: torch.Tensor, dtype) -> float:
     """The forward's bound: ``_atol``, plus for bf16 the kernel's rounding
-    of P to bf16 before P.V, at most 2^-9 of each weight, which moves an
-    output by at most 2^-9 max|v| (2^-8 leaves a factor of 2)."""
+    of P to bf16 before P.V, at most 2^-8 of each weight (bf16's unit
+    roundoff), which moves an output by at most 2^-8 max|v|."""
     extra = (2.0 ** -8 * float(v.float().abs().max())
              if dtype == torch.bfloat16 else 0.0)
     return _atol(ref, dtype) + extra
@@ -308,10 +309,15 @@ def test_kernels_match_plain_on_card(cuda, dtype, b, h, l, d, pad):
         mean_v = v[0].float().mean(dim=1, keepdim=True)
         torch.testing.assert_close(out[0].float(), mean_v.expand_as(
             out[0]), atol=atol, rtol=0)
-    for x, w in zip(got, sa.short_attention_bwd_ref(q, k, v, bias, do, stats,
-                                                    delta)):
-        torch.testing.assert_close(x.float(), w.float(),
-                                   atol=_atol(w, dtype), rtol=0)
+    # bf16: the tensor-core K7 also rounds P and dS to bf16 before their
+    # products (chip_smoke.k7_rounding)
+    rounding = (chip_smoke.k7_rounding(torch, q, k, v, bias, do, stats, delta)
+                if dtype == torch.bfloat16 else {})
+    for name, x, w in zip(("dq", "dk", "dv"), got, sa.short_attention_bwd_ref(
+            q, k, v, bias, do, stats, delta)):
+        torch.testing.assert_close(
+            x.float(), w.float(), atol=_atol(w, dtype) + rounding.get(name, 0.0),
+            rtol=0)
 
 
 @pytest.mark.cuda
@@ -334,7 +340,14 @@ def test_packed_kernels_match_plain_on_card(cuda, h):
                                              torch.bfloat16),
                                rtol=0)
     # twice the bound: the card's delta = rowsum(dO * O) reads the
-    # bf16-rounded O, the CPU's the fp32 O
+    # bf16-rounded O, the CPU's the fp32 O; plus the tensor-core K7's
+    # rounding of P and dS (chip_smoke.k7_rounding, on the CPU's operands)
+    qr, kr, vr = sa._unpack(xr.detach(), h)
+    dor = do.float().cpu().view(4, 197, h, 64).transpose(1, 2)
+    _, stats = sa.short_attention_fwd_ref(qr, kr, vr)
+    out4 = ref.detach().view(4, 197, h, 64).transpose(1, 2)
+    rounding = max(chip_smoke.k7_rounding(torch, qr, kr, vr, None, dor, stats,
+                                          sa._delta(out4, dor)).values())
     torch.testing.assert_close(x.grad.float().cpu(), xr.grad,
-                               atol=2 * _atol(xr.grad, torch.bfloat16),
-                               rtol=0)
+                               atol=2 * _atol(xr.grad, torch.bfloat16)
+                               + rounding, rtol=0)

@@ -94,7 +94,7 @@ flash_fwd_kernel_tc(const tc::bf16* __restrict__ q,
     if ((lane & 3) == 0 && r < Lq)
       lse[qrow + r] = fmaxf(acc.m[i], kMaxFloor) + logf(l_safe);
   }
-  tc::store_rows<D>(acc, inv_l, smem, out + qrow * D, D, q0, Lq);
+  tc::store_rows<D>(acc.o, inv_l, smem, out + qrow * D, D, q0, Lq);
 }
 
 // ------------------------------------------------------- fp32, CUDA cores

@@ -24,7 +24,7 @@
 // tile with no [L, L] residual.
 //
 // What bounds them on the H100: 4*D FLOPs per (query, key) pair forward
-// and 8*D backward, on operands reused across 64x64 tiles. At D = 64 and
+// and 10*D backward (five products), on operands reused across 64x64 tiles. At D = 64 and
 // L = 128 or 197 (MLM, ViT) the bf16 forward's bytes (q, k, v read once, o
 // written once) take longer at 3.35 TB/s than its products at the tensor
 // cores' rate; at L = 512, and for the backward, arithmetic binds.
@@ -49,22 +49,41 @@
 //   owns 8 rows x 4 columns of a 64x64 score tile and 8 rows x D/16 output
 //   columns, so row reductions are 16-lane shuffles.
 //
-// Backward design (K2/K3's decomposition, no atomics, deterministic; CUDA
-// cores for both dtypes): the wrapper computes delta = rowsum(dO * O) (=
-// rowsum(dP * P)); then
-// - dq: one CTA of 256 threads per (64-row q tile, head, batch) stages q and
-//   dO, walks the K/V tiles, forms dS = P * (dP - delta) / sqrt(D) in shared
-//   memory and accumulates dq = dS.K in registers;
-// - dk/dv: one CTA per (64-key tile, head, batch) stages K and V, walks the
-//   q tiles and accumulates dk = dS^T.q and dv = P^T.dO in registers.
-// Tiles are staged as fp32 in rows padded to D+1 floats (the column walks
-// then hit distinct banks) with 16-byte vector loads. Shared memory: the
-// fp32 forward 4*(2*64*(D+1) + 64*(Lpad+1)) bytes (up to 197 KB at L = 512,
-// D = 128); dq 4*(4*64*(D+1) + 64*65) (83 KB at D = 64, 149 KB at D = 128);
-// dk/dv that plus a second 64x65 tile and three row vectors (100 KB, 166
-// KB). All above 48 KB, so the launchers raise the dynamic limit.
+// The backward launcher dispatches by dtype the same way: a failed launch
+// returns its cudaError_t, and a bf16 tensor never reaches a CUDA-core
+// backward. Both paths take K2/K3's deterministic decomposition (no
+// atomics); the wrapper computes delta = rowsum(dO * O) (= rowsum(dP * P)),
+// then
+// - dq: one CTA per (64-row q tile, head, batch) walks the K/V tiles,
+//   forms dS = P * (dP - delta) / sqrt(D) and accumulates dq = dS.K;
+// - dk/dv: one CTA per (64-key tile, head, batch) walks the q tiles and
+//   accumulates dk = dS^T.q and dv = P^T.dO.
+//
+// - bf16 backward: `short_bwd_dq_kernel_tc` / `short_bwd_dkv_kernel_tc`,
+//   the tensor-core core of attn_bwd_tc.cuh (mma.sync, ldmatrix /
+//   ldmatrix.trans, a cp.async double-buffered ring of the streamed tiles,
+//   P and dS in registers, rounded to bf16 only as the A operand of their
+//   products): 4 warps a CTA, 16 rows a warp. The key-pad bias reaches dq
+//   through the ring (a 64-float row a stage) and dk/dv as two registers a
+//   thread (its keys are fixed). Shared memory 6 * 64 * D * 2 bytes (48 KB
+//   at D = 64) plus 1.5 KB of row statistics (dk/dv) or 512 bytes of bias
+//   (dq). Arithmetic binds it: 14 * D FLOPs issued per (query, key) pair
+//   (the recompute of S and dP in both kernels) against 10 * D essential.
+// - fp32 backward: `short_bwd_dq_kernel` / `short_bwd_dkv_kernel`, fp32
+//   FMAs on the CUDA cores (phases 8 and 12 hold fp32 gradients to 1e-4 of
+//   their max, and TF32 would round the inputs): 256 threads a CTA, dS
+//   through shared memory. Tiles are staged as fp32 in rows padded to D+1
+//   floats (the column walks then hit distinct banks) with 16-byte vector
+//   loads.
+//
+// Shared memory of the CUDA-core kernels: the fp32 forward 4*(2*64*(D+1) +
+// 64*(Lpad+1)) bytes (up to 197 KB at L = 512, D = 128); dq 4*(4*64*(D+1) +
+// 64*65) (83 KB at D = 64, 149 KB at D = 128); dk/dv that plus a second
+// 64x65 tile and three row vectors (100 KB, 166 KB). All above 48 KB, so
+// the launchers raise the dynamic limit.
 
 #include "attn_fwd_tc.cuh"
+#include "attn_bwd_tc.cuh"
 
 namespace vyomai {
 
@@ -103,18 +122,18 @@ constexpr size_t sa_dkv_smem() {
          (size_t)(4 * kSaT * (D + 1) + 2 * kSaT * kSaLDP + 3 * kSaT);
 }
 
-// Stage rows [row0, row0 + 64) of a strided [rows, D] matrix into
-// dst[64][D+1] as fp32; rows at or past `rows` are zero.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void sa_stage(const T* __restrict__ src,
+// Stage rows [row0, row0 + 64) of a strided fp32 [rows, D] matrix into
+// dst[64][D+1]; rows at or past `rows` are zero.
+template <int D, int NT>
+__device__ __forceinline__ void sa_stage(const float* __restrict__ src,
                                          long long row_stride, int row0,
                                          int rows, float* dst, int tid) {
-  constexpr int VN = Vec<T>::kN, CPR = D / VN, LD = D + 1;
+  constexpr int VN = Vec<float>::kN, CPR = D / VN, LD = D + 1;
   for (int c = tid; c < kSaT * CPR; c += NT) {
     const int r = c / CPR, col = (c % CPR) * VN;
     float x[VN];
     if (row0 + r < rows) {
-      load_vec<T>(src + (long long)(row0 + r) * row_stride + col, x);
+      load_vec<float>(src + (long long)(row0 + r) * row_stride + col, x);
     } else {
 #pragma unroll
       for (int e = 0; e < VN; ++e) x[e] = 0.f;
@@ -161,7 +180,7 @@ short_fwd_kernel_tc(SaArgs a, tc::bf16* __restrict__ out,
             make_float2(acc.m[i], acc.l[i]);
     }
   }
-  tc::store_rows<D>(acc, inv_l, smem,
+  tc::store_rows<D>(acc.o, inv_l, smem,
                     out + (long long)b * a.ob + (long long)h * a.oh, a.orow,
                     q0, L);
 }
@@ -188,7 +207,7 @@ short_fwd_kernel(SaArgs a, float* __restrict__ out,
   const float* bb = a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb;
   const float scale = (float)(1.0 / sqrt((double)D));
 
-  sa_stage<float, D, NT>(qb, a.sr, q0, L, qs, tid);
+  sa_stage<D, NT>(qb, a.sr, q0, L, qs, tid);
   float mx[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) mx[i] = -INFINITY;
@@ -197,7 +216,7 @@ short_fwd_kernel(SaArgs a, float* __restrict__ out,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kSaT;
     __syncthreads();                  // previous K tile fully consumed
-    sa_stage<float, D, NT>(kb, a.sr, k0, L, kvs, tid);
+    sa_stage<D, NT>(kb, a.sr, k0, L, kvs, tid);
     __syncthreads();
     float s[8][4];
 #pragma unroll
@@ -265,7 +284,7 @@ short_fwd_kernel(SaArgs a, float* __restrict__ out,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kSaT;
     __syncthreads();                  // p rows and the previous tile ready
-    sa_stage<float, D, NT>(vb, a.sr, k0, L, kvs, tid);
+    sa_stage<D, NT>(vb, a.sr, k0, L, kvs, tid);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < kSaT; ++c) {
@@ -304,11 +323,11 @@ __device__ __forceinline__ float sa_p(float dot, int r, int c, int L,
   return expf(x - row_max) * row_inv;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kSaBwdThreads)
-short_bwd_dq_kernel(SaArgs a, const T* __restrict__ dout,
+short_bwd_dq_kernel(SaArgs a, const float* __restrict__ dout,
                     const float* __restrict__ stats,
-                    const float* __restrict__ delta, T* __restrict__ dq) {
+                    const float* __restrict__ delta, float* __restrict__ dq) {
   constexpr int NT = kSaBwdThreads, LD = D + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;                   // [64][LD]
@@ -326,8 +345,8 @@ short_bwd_dq_kernel(SaArgs a, const T* __restrict__ dout,
   const float* bb = a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb;
   const float scale = (float)(1.0 / sqrt((double)D));
 
-  sa_stage<T, D, NT>((const T*)a.q + head, a.sr, q0, L, qs, tid);
-  sa_stage<T, D, NT>(dout + ohead, a.orow, q0, L, dos, tid);
+  sa_stage<D, NT>((const float*)a.q + head, a.sr, q0, L, qs, tid);
+  sa_stage<D, NT>(dout + ohead, a.orow, q0, L, dos, tid);
   float rmax[4], rinv[4], rdelta[4], acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -343,8 +362,8 @@ short_bwd_dq_kernel(SaArgs a, const T* __restrict__ dout,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kSaT;
     __syncthreads();                  // previous tile's ks/vs/ds consumed
-    sa_stage<T, D, NT>((const T*)a.k + head, a.sr, k0, L, ks, tid);
-    sa_stage<T, D, NT>((const T*)a.v + head, a.sr, k0, L, vs, tid);
+    sa_stage<D, NT>((const float*)a.k + head, a.sr, k0, L, ks, tid);
+    sa_stage<D, NT>((const float*)a.v + head, a.sr, k0, L, vs, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -397,23 +416,23 @@ short_bwd_dq_kernel(SaArgs a, const T* __restrict__ dout,
     }
   }
 
-  T* dqb = dq + head;
+  float* dqb = dq + head;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= L) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      dqb[(long long)r * a.sr + tx + 16 * j] = from_float<T>(acc[i][j]);
+      dqb[(long long)r * a.sr + tx + 16 * j] = acc[i][j];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kSaBwdThreads)
-short_bwd_dkv_kernel(SaArgs a, const T* __restrict__ dout,
+short_bwd_dkv_kernel(SaArgs a, const float* __restrict__ dout,
                      const float* __restrict__ stats,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv) {
   constexpr int NT = kSaBwdThreads, LD = D + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* ks = smem;                   // [64][LD]
@@ -435,8 +454,8 @@ short_bwd_dkv_kernel(SaArgs a, const T* __restrict__ dout,
   const float* bb = a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb;
   const float scale = (float)(1.0 / sqrt((double)D));
 
-  sa_stage<T, D, NT>((const T*)a.k + head, a.sr, k0, L, ks, tid);
-  sa_stage<T, D, NT>((const T*)a.v + head, a.sr, k0, L, vs, tid);
+  sa_stage<D, NT>((const float*)a.k + head, a.sr, k0, L, ks, tid);
+  sa_stage<D, NT>((const float*)a.v + head, a.sr, k0, L, vs, tid);
   float acc_k[4][DJ], acc_v[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -447,8 +466,8 @@ short_bwd_dkv_kernel(SaArgs a, const T* __restrict__ dout,
   for (int qt = 0; qt < nq; ++qt) {
     const int q0 = qt * kSaT;
     __syncthreads();                  // previous q tile fully consumed
-    sa_stage<T, D, NT>((const T*)a.q + head, a.sr, q0, L, qs, tid);
-    sa_stage<T, D, NT>(dout + ohead, a.orow, q0, L, dos, tid);
+    sa_stage<D, NT>((const float*)a.q + head, a.sr, q0, L, qs, tid);
+    sa_stage<D, NT>(dout + ohead, a.orow, q0, L, dos, tid);
     if (tid < kSaT) {
       const int r = q0 + tid;
       max_s[tid] = r < L ? stats[(rows + r) * 2] : 0.f;
@@ -519,18 +538,231 @@ short_bwd_dkv_kernel(SaArgs a, const T* __restrict__ dout,
     }
   }
 
-  T* dkb = dk + head;
-  T* dvb = dv + head;
+  float* dkb = dk + head;
+  float* dvb = dv + head;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = k0 + ty * 4 + i;
     if (c >= L) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dkb[(long long)c * a.sr + tx + 16 * j] = from_float<T>(acc_k[i][j]);
-      dvb[(long long)c * a.sr + tx + 16 * j] = from_float<T>(acc_v[i][j]);
+      dkb[(long long)c * a.sr + tx + 16 * j] = acc_k[i][j];
+      dvb[(long long)c * a.sr + tx + 16 * j] = acc_v[i][j];
     }
   }
+}
+
+// bf16 on the tensor cores (attn_bwd_tc.cuh): dq for one 64-row q tile.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, tc::bwd_min_ctas<D>())
+short_bwd_dq_kernel_tc(SaArgs a, const tc::bf16* __restrict__ dout,
+                       const float* __restrict__ stats,
+                       const float* __restrict__ delta,
+                       tc::bf16* __restrict__ dq) {
+  using namespace tc;
+  constexpr int KC = D / 16, TILE = kTile * D, NS = kDqSub;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sq = reinterpret_cast<bf16*>(tc_smem);   // q, later dq staging
+  bf16* sdo = sq + TILE;
+  bf16* ring = sdo + TILE;                       // stage s: K, then V
+  float* sb = reinterpret_cast<float*>(ring + 4 * TILE);   // bias rows
+
+  const int L = a.L, q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, wrow = (tid >> 5) * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool warp_live = q0 + wrow < L;
+  const long long head = (long long)b * a.sb + (long long)h * a.sh;
+  const long long rows = ((long long)b * a.H + h) * L;
+  const bf16* k = (const bf16*)a.k + head;
+  const bf16* v = (const bf16*)a.v + head;
+  const BiasTile bt{a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb, 0,
+                    1, 1, L};
+  const bool has_bias = bt.src != nullptr;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const int nk = sa_lpad(L) / kTile;
+
+  load_tile<D>((const bf16*)a.q + head, a.sr, q0, L, sq, tid);
+  load_tile<D>(dout + (long long)b * a.ob + (long long)h * a.oh, a.orow, q0,
+               L, sdo, tid);
+  load_tile<D>(k, a.sr, 0, L, ring, tid);
+  load_tile<D>(v, a.sr, 0, L, ring + TILE, tid);
+  if (has_bias) load_bias(bt, 0, sb, tid);
+  cp_async_commit();
+
+  // the thread's rows g and g + 8: max, 1 / sum and delta (0 past L: P = 0)
+  float m[2], inv[2], de[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + wrow + g + 8 * i;
+    const bool live = r < L;
+    m[i] = live ? stats[(rows + r) * 2] : 0.f;
+    inv[i] = live ? __frcp_rn(stats[(rows + r) * 2 + 1]) : 0.f;
+    de[i] = live ? delta[rows + r] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qf[KC][4], df[KC][4];
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1, k0 = kt * kTile;
+    if (kt + 1 < nk) {   // the next tile into the other stage
+      load_tile<D>(k, a.sr, k0 + kTile, L, ring + 2 * (st ^ 1) * TILE, tid);
+      load_tile<D>(v, a.sr, k0 + kTile, L, ring + (2 * (st ^ 1) + 1) * TILE,
+                   tid);
+      if (has_bias) load_bias(bt, k0 + kTile, sb + (st ^ 1) * kTile, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // all but the newest group: tile kt (and q, dO)
+    __syncthreads();
+
+    if (warp_live) {
+      if (kt == 0) {
+        load_a<D>(smem_addr(sq), wrow, qf);
+        load_a<D>(smem_addr(sdo), wrow, df);
+      }
+      const uint32_t ska = smem_addr(ring + 2 * st * TILE);
+      const uint32_t sva = smem_addr(ring + (2 * st + 1) * TILE);
+      const float* brow = sb + st * kTile;
+      const bool edge = k0 + kTile > L;
+      for (int c0 = 0; c0 < kTile && k0 + c0 < L; c0 += NS) {
+        float s[NS / 8][4], dp[NS / 8][4];
+        mma_abt<D, NS / 8>(qf, ska, c0, s);    // S = Q.K^T
+        mma_abt<D, NS / 8>(df, sva, c0, dp);   // dP = dO.V^T
+#pragma unroll
+        for (int j = 0; j < NS / 8; ++j) {
+          // element e: row g + 8 (e / 2), key column c + e % 2
+          const int c = c0 + 8 * j + 2 * t4;
+          const float2 kb = has_bias ? tile_bias(brow, 1, 0, c)
+                                     : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            float x = s[j][e] * scale + ((e & 1) ? kb.y : kb.x);
+            if (edge && k0 + c + (e & 1) >= L) x = -INFINITY;   // not a key
+            const float p = ex2((x - m[i]) * kLog2e) * inv[i];
+            dp[j][e] = p * (dp[j][e] - de[i]) * scale;   // dS
+          }
+        }
+        mma_pb<D, NS / 16>(dp, ska, c0, acc);   // dQ += dS.K
+      }
+    }
+    __syncthreads();   // stage st fully read before tile kt + 2 lands in it
+  }
+  cp_async_wait<0>();
+  if (!warp_live) return;
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(acc, one, sq, dq + head, a.sr, q0, L);
+}
+
+// bf16 on the tensor cores (attn_bwd_tc.cuh): dk and dv for 64 keys.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, tc::bwd_min_ctas<D>())
+short_bwd_dkv_kernel_tc(SaArgs a, const tc::bf16* __restrict__ dout,
+                        const float* __restrict__ stats,
+                        const float* __restrict__ delta,
+                        tc::bf16* __restrict__ dk,
+                        tc::bf16* __restrict__ dv) {
+  using namespace tc;
+  constexpr int KC = D / 16, TILE = kTile * D, NS = kDkvSub;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sk = reinterpret_cast<bf16*>(tc_smem);   // K, later dk staging
+  bf16* sv = sk + TILE;                          // V, later dv staging
+  bf16* ring = sv + TILE;                        // stage s: q, then dO
+  float* srs = reinterpret_cast<float*>(ring + 4 * TILE);   // row stats
+
+  const int L = a.L, k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, wrow = (tid >> 5) * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool warp_live = k0 + wrow < L;
+  const long long head = (long long)b * a.sb + (long long)h * a.sh;
+  const long long rows = ((long long)b * a.H + h) * L;
+  const bf16* q = (const bf16*)a.q + head;
+  const bf16* go = dout + (long long)b * a.ob + (long long)h * a.oh;
+  const float* ms = stats + rows * 2;
+  const float* dl = delta + rows;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const int nq = sa_lpad(L) / kTile;
+
+  load_tile<D>((const bf16*)a.k + head, a.sr, k0, L, sk, tid);
+  load_tile<D>((const bf16*)a.v + head, a.sr, k0, L, sv, tid);
+  load_tile<D>(q, a.sr, 0, L, ring, tid);
+  load_tile<D>(go, a.orow, 0, L, ring + TILE, tid);
+  load_row_stats(ms, dl, 0, L, srs, tid);
+  cp_async_commit();
+
+  // the key-pad bias of the thread's keys g and g + 8 (-inf past L: P = 0)
+  float kb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + wrow + g + 8 * i;
+    kb[i] = key >= L ? -INFINITY
+            : a.bias == nullptr ? 0.f
+                                : a.bias[b * a.bias_sb + key];
+  }
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+  const uint32_t ska = smem_addr(sk), sva = smem_addr(sv);
+
+  for (int qt = 0; qt < nq; ++qt) {
+    const int st = qt & 1, q0 = qt * kTile;
+    if (qt + 1 < nq) {   // the next tile into the other stage
+      load_tile<D>(q, a.sr, q0 + kTile, L, ring + 2 * (st ^ 1) * TILE, tid);
+      load_tile<D>(go, a.orow, q0 + kTile, L,
+                   ring + (2 * (st ^ 1) + 1) * TILE, tid);
+      load_row_stats(ms, dl, q0 + kTile, L, srs + (st ^ 1) * kRowStage, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // all but the newest group: tile qt (and K, V)
+    __syncthreads();
+
+    if (warp_live) {
+      const uint32_t sqa = smem_addr(ring + 2 * st * TILE);
+      const uint32_t sdoa = smem_addr(ring + (2 * st + 1) * TILE);
+      const float* rs = srs + st * kRowStage;
+      for (int c0 = 0; c0 < kTile && q0 + c0 < L; c0 += NS) {
+        float s[NS / 8][4], dp[NS / 8][4];
+        uint32_t kf[KC][4], vf[KC][4];
+        load_a<D>(ska, wrow, kf);
+        mma_abt<D, NS / 8>(kf, sqa, c0, s);     // S^T = K.Q^T
+        load_a<D>(sva, wrow, vf);
+        mma_abt<D, NS / 8>(vf, sdoa, c0, dp);   // dP^T = V.dO^T
+#pragma unroll
+        for (int j = 0; j < NS / 8; ++j) {
+          // element e: key row g + 8 (e / 2), q column c + e % 2
+          const int c = c0 + 8 * j + 2 * t4;
+          const float4 st2 = *reinterpret_cast<const float4*>(rs + 2 * c);
+          const float2 de = *reinterpret_cast<const float2*>(rs + 2 * kTile
+                                                             + c);
+          const float m[2] = {st2.x, st2.z};
+          const float inv[2] = {__frcp_rn(st2.y), __frcp_rn(st2.w)};
+          const float dlt[2] = {de.x, de.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e & 1;
+            const float x = s[j][e] * scale + kb[e >> 1];
+            float p = ex2((x - m[i]) * kLog2e) * inv[i];
+            if (q0 + c + i >= L) p = 0.f;   // not a query
+            dp[j][e] = p * (dp[j][e] - dlt[i]) * scale;   // dS^T
+            s[j][e] = p;                                  // P^T
+          }
+        }
+        mma_pb<D, NS / 16>(s, sdoa, c0, acc_v);    // dV += P^T.dO
+        mma_pb<D, NS / 16>(dp, sqa, c0, acc_k);    // dK += dS^T.Q
+      }
+    }
+    __syncthreads();   // stage st fully read before tile qt + 2 lands in it
+  }
+  cp_async_wait<0>();
+  if (!warp_live) return;
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(acc_k, one, sk, dk + head, a.sr, k0, L);
+  store_rows<D>(acc_v, one, sv, dv + head, a.sr, k0, L);
 }
 
 // -------------------------------------------------------------- launchers
@@ -566,21 +798,42 @@ static int sa_fwd_d(const SaArgs& a, int B, void* out, float* stats,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 static int sa_bwd_d(const SaArgs& a, int B, const void* dout,
                     const float* stats, const float* delta, void* dq,
-                    void* dk, void* dv, cudaStream_t st) {
+                    void* dk, void* dv, bool bf16, cudaStream_t st) {
   const dim3 grid(sa_lpad(a.L) / kSaT, a.H, B);
-  cudaError_t err = sa_smem_limit(short_bwd_dq_kernel<T, D>, sa_dq_smem<D>());
+  cudaError_t err;
+  if (bf16) {   // the bias ring of dq reads a 16-byte aligned row
+    if (a.bias != nullptr && (((uintptr_t)a.bias & 15) || a.bias_sb % 4))
+      return (int)cudaErrorInvalidValue;
+    const size_t dq_smem = tc::bwd_smem_bytes<D>() +
+                           (a.bias == nullptr ? 0 : tc::bias_smem_bytes(1));
+    err = sa_smem_limit(short_bwd_dq_kernel_tc<D>, dq_smem);
+    if (err != cudaSuccess) return (int)err;
+    short_bwd_dq_kernel_tc<D><<<grid, tc::kThreads, dq_smem, st>>>(
+        a, (const tc::bf16*)dout, stats, delta, (tc::bf16*)dq);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t dkv_smem = tc::bwd_smem_bytes<D>() +
+                            2 * tc::kRowStage * sizeof(float);
+    err = sa_smem_limit(short_bwd_dkv_kernel_tc<D>, dkv_smem);
+    if (err != cudaSuccess) return (int)err;
+    short_bwd_dkv_kernel_tc<D><<<grid, tc::kThreads, dkv_smem, st>>>(
+        a, (const tc::bf16*)dout, stats, delta, (tc::bf16*)dk,
+        (tc::bf16*)dv);
+    return (int)cudaGetLastError();
+  }
+  err = sa_smem_limit(short_bwd_dq_kernel<D>, sa_dq_smem<D>());
   if (err != cudaSuccess) return (int)err;
-  short_bwd_dq_kernel<T, D><<<grid, kSaBwdThreads, sa_dq_smem<D>(), st>>>(
-      a, (const T*)dout, stats, delta, (T*)dq);
+  short_bwd_dq_kernel<D><<<grid, kSaBwdThreads, sa_dq_smem<D>(), st>>>(
+      a, (const float*)dout, stats, delta, (float*)dq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = sa_smem_limit(short_bwd_dkv_kernel<T, D>, sa_dkv_smem<D>());
+  err = sa_smem_limit(short_bwd_dkv_kernel<D>, sa_dkv_smem<D>());
   if (err != cudaSuccess) return (int)err;
-  short_bwd_dkv_kernel<T, D><<<grid, kSaBwdThreads, sa_dkv_smem<D>(), st>>>(
-      a, (const T*)dout, stats, delta, (T*)dk, (T*)dv);
+  short_bwd_dkv_kernel<D><<<grid, kSaBwdThreads, sa_dkv_smem<D>(), st>>>(
+      a, (const float*)dout, stats, delta, (float*)dk, (float*)dv);
   return (int)cudaGetLastError();
 }
 
@@ -630,13 +883,8 @@ extern "C" int short_bwd_launch(const void* q, const void* k, const void* v,
                            orow);
   cudaStream_t st = (cudaStream_t)stream;
   const float *sp = (const float*)stats, *dp = (const float*)delta;
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    if (D == 32) return sa_bwd_d<T, 32>(a, B, dout, sp, dp, dq, dk, dv, st);
-    if (D == 64) return sa_bwd_d<T, 64>(a, B, dout, sp, dp, dq, dk, dv, st);
-    return sa_bwd_d<T, 128>(a, B, dout, sp, dp, dq, dk, dv, st);
-  }
-  if (D == 32) return sa_bwd_d<float, 32>(a, B, dout, sp, dp, dq, dk, dv, st);
-  if (D == 64) return sa_bwd_d<float, 64>(a, B, dout, sp, dp, dq, dk, dv, st);
-  return sa_bwd_d<float, 128>(a, B, dout, sp, dp, dq, dk, dv, st);
+  const bool bf16 = is_bf16 != 0;
+  if (D == 32) return sa_bwd_d<32>(a, B, dout, sp, dp, dq, dk, dv, bf16, st);
+  if (D == 64) return sa_bwd_d<64>(a, B, dout, sp, dp, dq, dk, dv, bf16, st);
+  return sa_bwd_d<128>(a, B, dout, sp, dp, dq, dk, dv, bf16, st);
 }

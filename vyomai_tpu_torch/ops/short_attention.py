@@ -37,11 +37,13 @@ TPU's own: the VMEM budget, and ``supported_packed``'s even head count
 
 Each wrapper routes a CPU tensor to its plain version and launches its
 kernel for a CUDA tensor, raising on what the kernel does not take; there
-is no fallback between the two. On the card the forward (K5, K6)
-dispatches by dtype: bf16 runs on the tensor cores in one pass
-(``short_fwd_kernel_tc``: online softmax, P rounded to bf16 before the
-value product), fp32 on the CUDA cores (``short_fwd_kernel``); either
-raises on failure.
+is no fallback between the two. On the card both directions dispatch by
+dtype, and either path raises on failure: bf16 runs on the tensor cores,
+the forward (K5, K6) in one pass (``short_fwd_kernel_tc``: online softmax,
+P rounded to bf16 before the value product) and the backward (K7) as
+``short_bwd_dq_kernel_tc`` and ``short_bwd_dkv_kernel_tc`` (P and dS
+rounded to bf16 before their products); fp32 runs on the CUDA cores
+(``short_fwd_kernel``, ``short_bwd_dq_kernel``, ``short_bwd_dkv_kernel``).
 """
 
 import torch

@@ -33,7 +33,7 @@ _UNPORTED_ENGINE_ARGS = (
     "ngram_speculation", "medusa_params", "fsms", "loras",
     "presence_penalty", "frequency_penalty", "repetition_penalty",
     "return_logprobs", "mesh", "position_offset", "kv_backend",
-    "pipeline_decode", "plus_one")
+    "pipeline_decode", "plus_one", "cache_aware_admission")
 _UNPORTED_SUBMIT_ARGS = (
     "temperature", "top_p", "min_p", "presence_penalty", "frequency_penalty",
     "repetition_penalty", "min_tokens", "ignore_eos", "logit_bias", "seed",
@@ -48,6 +48,23 @@ def _reject(unsupported: dict, ported: tuple, where: str):
                 f"{where}({name}=...) is not ported to PyTorch yet")
         raise TypeError(f"{where}() got an unexpected keyword argument "
                         f"{name!r}")
+
+
+def check_card_config(cfg):
+    """Raise ``NotImplementedError`` for a config whose attention the
+    card's kernels do not take yet: a GQA group above 8 (K4) or a head_dim
+    other than 64 and 128 (K1 and K4). The plain path on the CPU serves
+    both, so the engine checks only where it runs on a CUDA device."""
+    group = cfg.num_attention_heads // cfg.num_key_value_heads
+    if group > 8:
+        raise NotImplementedError(
+            f"GQA group {group}: the K4 group > 8 variant (paged decode) is "
+            "not ported to the card yet")
+    if cfg.head_dim not in (64, 128):
+        raise NotImplementedError(
+            f"head_dim {cfg.head_dim}: the K1/K4 D={cfg.head_dim} variants "
+            "(flash prefill, paged decode) are not ported to the card yet; "
+            "they take D in (64, 128)")
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -86,6 +103,8 @@ class ContinuousBatchEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {self.device}")
+        if self.device.type == "cuda":
+            check_card_config(model.config)
         self.model = model
         self.cfg = model.config
         self.kv = PagedKVManager(num_blocks, block_size)

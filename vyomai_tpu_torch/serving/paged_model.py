@@ -162,13 +162,16 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
                  scales=flat_sc)
         tables = _layer_tables(block_tables, layer_i, nb).clamp_min(0)
         # [N, H_kv, MAXB*BS, D]; a quantized pool's come back dequantized
-        # in fp32 and are rounded to q's dtype for K1 here, where the TPU
-        # kernel took them in fp32 (one more rounding at bf16)
+        # in fp32, and K1 attends q against them in (at least) fp32, as the
+        # JAX prefill does: a bf16 q widens exactly, and the output returns
+        # to q's dtype
         kk, vv = gather_kv(flat_pool, tables, nkv, flat_sc)
         qh = q.transpose(1, 2).contiguous()          # [N, H, T, D]
-        attn, _ = flash_attention_fwd(qh, kk.to(qh.dtype).contiguous(),
-                                      vv.to(qh.dtype).contiguous(), bias)
-        attn = attn.transpose(1, 2).reshape(n, t_pad, -1)
+        acc = qh.dtype if flat_sc is None else torch.promote_types(
+            qh.dtype, torch.float32)
+        attn, _ = flash_attention_fwd(qh.to(acc), kk.to(acc).contiguous(),
+                                      vv.to(acc).contiguous(), bias)
+        attn = attn.to(qh.dtype).transpose(1, 2).reshape(n, t_pad, -1)
         hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj, attn)
         hidden = _mlp_block(layer, cfg, hidden)
     return cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
