@@ -11,12 +11,15 @@ and exits non-zero):
    power limit, build the CUDA kernels from ``vyomai_tpu_torch/csrc``, and
    count with ``cuobjdump`` the tensor-core (HMMA) instructions and the
    registers of each bf16 attention kernel (the forwards K1, K5/K6 and the
-   backward K7);
+   backwards K2/K3 and K7);
 2. K4 paged decode against its plain version at the serving shapes;
 3. K1 flash forward against its plain version at the prefill and training
    shapes and the contract's edges (ragged, causal, fully masked rows);
 4. K2/K3 flash backward against their plain versions at the training
-   shapes and the contract's edges;
+   shapes and the contract's edges (the bf16 bound adds the tensor-core
+   kernels' rounding of P and dS, ``flash_bwd_rounding``), with their
+   TFLOP/s on the issued work (``flash_bwd_issued_flops``) and the live
+   pairs beside SDPA's backward;
 5. end-to-end serving at Qwen3-0.6B width (``QwenConfig()``, random bf16
    weights from a seeded generator): 24 requests in two waves, the second
    hitting the radix prefix cache;
@@ -168,8 +171,10 @@ def tensor_core_kernels(so: Path) -> dict:
         return subprocess.run([str(tool), flag, str(so)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
 
-    pat = re.compile(r"(flash_fwd_kernel_tc|short_fwd_kernel_tc|"
-                     r"short_bwd_dq_kernel_tc|short_bwd_dkv_kernel_tc)ILi(\d+)E")
+    pat = re.compile(r"(flash_fwd_kernel_tc|flash_bwd_dq_kernel_tc|"
+                     r"flash_bwd_dkv_kernel_tc|short_fwd_kernel_tc|"
+                     r"short_bwd_dq_kernel_tc|short_bwd_dkv_kernel_tc)"
+                     r"ILi(\d+)E")
     found, name = {}, None
     for line in dump("-sass").splitlines():
         if "Function :" in line:
@@ -193,6 +198,8 @@ def tensor_core_kernels(so: Path) -> dict:
 
 
 TC_KERNELS = ("flash_fwd_kernel_tc<128>", "flash_fwd_kernel_tc<64>",
+              "flash_bwd_dq_kernel_tc<128>", "flash_bwd_dq_kernel_tc<64>",
+              "flash_bwd_dkv_kernel_tc<128>", "flash_bwd_dkv_kernel_tc<64>",
               "short_fwd_kernel_tc<128>", "short_fwd_kernel_tc<32>",
               "short_fwd_kernel_tc<64>", "short_bwd_dq_kernel_tc<128>",
               "short_bwd_dq_kernel_tc<32>", "short_bwd_dq_kernel_tc<64>",
@@ -373,23 +380,43 @@ def grad_atol(ref, bf16: bool, rounding: float = 0.0) -> float:
     largest value, plus for bf16 one ulp of the output after the final cast
     (2^-7 of its largest magnitude), plus ``rounding``: what a kernel's own
     bf16 rounding of an intermediate may move the gradient. For the bf16
-    tensor-core K7 that is ``k7_rounding``'s term, at most 2^-8 max(P^T
-    |dO|) for dV, 2^-8 max(|dS|^T |q|) for dK and 2^-8 max(|dS| |k|) for dQ
-    (P and dS rounded to bf16 before their products)."""
+    tensor-core K7 that is ``k7_rounding``'s term, for K2/K3
+    ``flash_bwd_rounding``'s: at most 2^-8 max(P^T |dO|) for dV, 2^-8
+    max(|dS|^T |q|) for dK and 2^-8 max(|dS| |k|) for dQ, dV and dK summed
+    over the GQA group (P and dS rounded to bf16 before their products)."""
     top = float(ref.float().abs().max())
     return ((2.0 ** -7 if bf16 else 0.0) + 1e-4) * top + 1e-6 + rounding
 
 
+def bwd_rounding(torch, p, ds, q, k, do, group: int = 1) -> dict:
+    """What rounding P (into dV = P^T.dO) and dS (into dK = dS^T.q and dQ =
+    dS.k) to bf16 before the products may move each gradient, where the
+    plain version keeps them fp32. bf16's unit roundoff is 2^-8, so each
+    rounded value moves by at most 2^-8 of itself and each gradient entry
+    by at most 2^-8 times the sum of |rounded value| x |other operand| along
+    the product: dV[k, d] by 2^-8 sum_q P[q, k] |dO[q, d]|, dK[k, d] by
+    2^-8 sum_q |dS[q, k]| |q[q, d]|, dQ[q, d] by 2^-8 sum_k |dS[q, k]|
+    |k[k, d]|, the first two summed over the q heads of a kv head's GQA
+    group. ``p`` and ``ds`` are fp32 ``[B, H, Lq, Lk]``, k is ``[B, H /
+    group, Lk, D]``. Returns each term's largest entry {"dq", "dk",
+    "dv"}."""
+    u = 2.0 ** -8
+    ds = ds.abs()
+    fk = k.float().abs().repeat_interleave(group, dim=1)
+    terms = {
+        "dq": torch.einsum("bhqk,bhkd->bhqd", ds, fk),
+        "dk": torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
+        "dv": torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs())}
+    for name in ("dk", "dv"):
+        t = terms[name]
+        terms[name] = t.view(t.shape[0], -1, group, *t.shape[2:]).sum(2)
+    return {name: u * float(t.max()) for name, t in terms.items()}
+
+
 def k7_rounding(torch, q, k, v, bias, do, stats, delta) -> dict:
-    """The bf16 tensor-core K7 rounds P (into dV = P^T.dO) and dS (into dK
-    = dS^T.q and dQ = dS.k) to bf16 before the products, where the plain
-    version keeps them fp32. bf16's unit roundoff is 2^-8, so each rounded
-    value moves by at most 2^-8 of itself and each gradient entry by at
-    most 2^-8 times the sum of |rounded value| x |other operand| along the
-    product: dV[k, d] by 2^-8 sum_q P[q, k] |dO[q, d]|, dK[k, d] by 2^-8
-    sum_q |dS[q, k]| |q[q, d]|, dQ[q, d] by 2^-8 sum_k |dS[q, k]| |k[k,
-    d]|. Returns each term's largest entry {"dq", "dk", "dv"}, from the
-    plain arithmetic in fp32 on the same inputs."""
+    """``bwd_rounding`` for the bf16 tensor-core K7, from the plain
+    arithmetic in fp32 on the same inputs, with P from the forward's row
+    (max, sum)."""
     f = [x.float() for x in (q, k, v, do)]
     scale = 1.0 / q.shape[-1] ** 0.5
     s = torch.einsum("bhqd,bhkd->bhqk", f[0], f[1]) * scale
@@ -398,12 +425,18 @@ def k7_rounding(torch, q, k, v, bias, do, stats, delta) -> dict:
     p = torch.exp(s - stats[..., :1]) / stats[..., 1:]
     del s
     ds = torch.einsum("bhqd,bhkd->bhqk", f[3], f[2])
-    ds = (p * (ds - delta[..., None]) * scale).abs()
-    u = 2.0 ** -8
-    return {
-        "dq": u * float(torch.einsum("bhqk,bhkd->bhqd", ds, f[1].abs()).max()),
-        "dk": u * float(torch.einsum("bhqk,bhqd->bhkd", ds, f[0].abs()).max()),
-        "dv": u * float(torch.einsum("bhqk,bhqd->bhkd", p, f[3].abs()).max())}
+    ds = p * (ds - delta[..., None]) * scale
+    return bwd_rounding(torch, p, ds, q, k, do)
+
+
+def flash_bwd_rounding(fa, q, k, v, bias, do, lse, delta, *,
+                       causal=False, q_offset=None) -> dict:
+    """``bwd_rounding`` for the bf16 tensor-core K2/K3, from the plain
+    arithmetic in fp32 on the same inputs (``fa._p_ds``: P from the
+    forward's lse, the causal mask with ``q_offset``, GQA)."""
+    import torch
+    p, ds, group = fa._p_ds(q, k, v, bias, do, lse, delta, causal, q_offset)
+    return bwd_rounding(torch, p, ds, q, k, do, group)
 
 
 def k7_issued_flops(b: int, h: int, l: int, d: int, bf16: bool) -> int:
@@ -419,20 +452,70 @@ def k7_issued_flops(b: int, h: int, l: int, d: int, bf16: bool) -> int:
     return 14 * d * b * h * up(64) ** 2
 
 
+def flash_bwd_issued_flops(b: int, h: int, lq: int, lk: int, d: int,
+                           causal: bool, q_offset=None) -> tuple:
+    """FLOPs the bf16 tensor-core K2 and K3 issue, ``(K2, K3)``: 2 * D a
+    (query, key) pair for each of K2's three products (S, dP, dQ) and K3's
+    four (S^T, dP^T, dV, dK), over the pairs their loops visit. Each warp
+    owns 16 rows (q rows in K2, keys in K3) and takes its 64-wide tile a
+    sub-step at a time (32 key columns in K2, 32 q columns in K3): K2 walks
+    the K tiles up to its CTA's causal edge and stops each warp at its own
+    edge and at Lk; K3 walks the q tiles from the first that sees its keys,
+    skips the sub-steps wholly before a warp's edge and stops at Lq. Warps
+    past the ragged edge issue nothing. The count is the same for every
+    (batch, q head)."""
+    t = 64
+    if q_offset is None:
+        q_offset = lk - lq
+    nq, nk = -(-lq // t), -(-lk // t)
+    dq = dkv = 0
+    for qt in range(nq):
+        q0, n_k = qt * t, nk
+        if causal:
+            last = q_offset + q0 + t - 1
+            n_k = 0 if last < 0 else min(last // t + 1, nk)
+        for w in range(0, t, 16):
+            wlast = q_offset + q0 + w + 15
+            for k0 in range(0, n_k * t, t) if q0 + w < lq else ():
+                end = min(t, lk - k0, wlast - k0 + 1 if causal else t)
+                dq += 16 * -(-max(end, 0) // 32) * 32
+    for k0 in range(0, nk * t, t):
+        first_q = 0 if not causal else min(max(k0 - q_offset, 0) // t, nq)
+        for w in range(0, t, 16):
+            for q0 in range(first_q * t, nq * t, t) if k0 + w < lk else ():
+                begin, first = 0, k0 + w - q_offset - q0
+                if causal and first > 0:
+                    begin = t if first >= t else first // 32 * 32
+                dkv += 16 * 32 * len(range(begin, min(t, lq - q0), 32))
+    return 6 * d * b * h * dq, 8 * d * b * h * dkv
+
+
 def phase_flash_bwd(torch, fa, flush, card):
     """K2/K3 against their plain versions at the training shapes (B=4,
     H=16, H_kv=4, L=1024, D=64, bf16, causal + zero pad bias) and at the
-    contract's edges."""
+    contract's edges, bf16 and fp32: D=128, ragged lengths with q_offset,
+    a full bias with a fully masked row, GQA groups 1 and 8, causal rows
+    before every key (Lq > Lk), and bias rows that are not 16-byte aligned
+    (Lk = 1001, which the bf16 wrappers pad). A row that sees no key must
+    get a gradient of exactly 0."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
     bf, f32 = torch.bfloat16, torch.float32
     cases = [  # (label, b, h, h_kv, lq, lk, d, dtype, bias rows, q_offset)
         ("training causal+pad bias", 4, 16, 4, 1024, 1024, 64, bf, 1, None),
         ("D=128 H_kv=8 causal", 4, 16, 8, 1024, 1024, 128, f32, 0, None),
+        ("D=128 H_kv=8 causal", 4, 16, 8, 1024, 1024, 128, bf, 0, None),
         ("ragged Lq=37 Lk=1000 q_offset=900", 4, 16, 4, 37, 1000, 64, bf, 0,
          900),
         ("full bias, masked rows", 4, 16, 4, 512, 512, 128, bf, 512, None),
         ("group 1 causal", 4, 16, 16, 1024, 1024, 64, bf, 1, None),
+        ("group 8 causal+pad bias", 4, 16, 2, 1024, 1024, 64, bf, 1, None),
+        ("causal Lq=300 > Lk=200", 4, 16, 4, 300, 200, 64, bf, 0, None),
+        ("causal Lq=300 > Lk=200", 4, 16, 4, 300, 200, 64, f32, 0, None),
+        ("unaligned pad bias Lk=1001", 4, 16, 4, 1001, 1001, 64, bf, 1,
+         None),
+        ("unaligned full bias Lq=300 Lk=1001", 2, 16, 4, 300, 1001, 128, bf,
+         300, None),
     ]
     main = None
     for label, b, h, h_kv, lq, lk, d, dtype, rows, q_off in cases:
@@ -457,19 +540,26 @@ def phase_flash_bwd(torch, fa, flush, card):
         ref_dq = fa.flash_bwd_dq_ref(q, k, v, bias, do, lse, delta, **kw)
         ref_dk, ref_dv = fa.flash_bwd_dkv_ref(q, k, v, bias, do, lse, delta,
                                               **kw)
+        rounding = (flash_bwd_rounding(fa, q, k, v, bias, do, lse, delta,
+                                       **kw) if dtype == bf else {})
         errs = {}
         for name, x, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
                              ("dv", dv, ref_dv)):
             err = float((x.float() - ref.float()).abs().max())
-            atol = grad_atol(ref, dtype == bf)
+            atol = grad_atol(ref, dtype == bf, rounding.get(name, 0.0))
             check(bool(torch.isfinite(x).all()), f"K2/K3 {label}: {name} "
                   "not finite")
             check(err <= atol, f"K2/K3 {label} {dtype}: {name} max err "
                   f"{err} > {atol}")
             errs[name] = (err, atol)
-        if rows > 1:
-            check(bool(torch.all(dq[:, :, 7] == 0)),
-                  "K2: a fully-masked row got a nonzero gradient")
+        ok = live_mask(torch, bias, lq, lk, causal,
+                       lk - lq if q_off is None else q_off)
+        if ok is not None:   # rows that see no key: exactly zero gradient
+            dead = ~ok.any(dim=-1).expand(b, h, lq)
+            check(bool(dead.any()) == (rows > 1 or lq > lk)
+                  and bool(torch.all(dq[dead] == 0)),
+                  f"K2 {label}: a row that sees no key got a nonzero "
+                  "gradient")
         t = {
             "K2": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse,
                                                   delta, **kw), flush, 10),
@@ -480,11 +570,33 @@ def phase_flash_bwd(torch, fa, flush, card):
             "K3 plain": cuda_ms(lambda: fa.flash_bwd_dkv_ref(
                 q, k, v, bias, do, lse, delta, **kw), flush, 10),
         }
+        pairs = live_pairs(torch, bias, b, h, lq, lk, causal, q_off)
+        ins = (q, k, v, do, lse, delta, bias)
+        recs = {
+            "flash_bwd_dq": dict(
+                max_abs_err=errs["dq"][0], ms=t["K2"],
+                plain_ms=t["K2 plain"], library_ms=None,
+                **bound(6 * d * pairs, nbytes(*ins, dq), dtype)),
+            "flash_bwd_dkv": dict(
+                max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                ms=t["K3"], plain_ms=t["K3 plain"], library_ms=None,
+                **bound(8 * d * pairs, nbytes(*ins, dk, dv), dtype))}
+        rates = ""
+        if dtype == bf:
+            issued = flash_bwd_issued_flops(b, h, lq, lk, d, causal, q_off)
+            rates = "; " + ", ".join(
+                f"{n} {f / t[n] / 1e9:.1f} TFLOP/s issued ({f} FLOP), "
+                f"{live / t[n] / 1e9:.1f} on live pairs, "
+                f"{recs[r]['bound_ms'] / t[n]:.3f} of the bound "
+                f"({recs[r]['bound_by']})"
+                for n, r, f, live in (
+                    ("K2", "flash_bwd_dq", issued[0], 6 * d * pairs),
+                    ("K3", "flash_bwd_dkv", issued[1], 8 * d * pairs)))
         phase(f"K2/K3 flash_bwd {label} D={d} {str(dtype)[6:]}: max_abs_err "
               + ", ".join(f"{n}={e:.3g} (atol {a:.3g})"
                           for n, (e, a) in errs.items())
               + "; " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in t.items())
-              + f" [{card}]")
+              + rates + f" [{card}]")
         if main is None:
             # SDPA's backward computes dq, dk and dv at once: one figure
             # for K2 + K3
@@ -495,20 +607,14 @@ def phase_flash_bwd(torch, fa, flush, card):
                 enable_gqa=h != h_kv)
             lib_ms = cuda_ms(lambda: torch.autograd.grad(
                 lib_out, leaves, do, retain_graph=True), flush, 10)
-            pairs = live_pairs(torch, bias, b, h, lq, lk, causal, q_off)
-            ins = (q, k, v, do, lse, delta, bias)
-            main = {
-                "flash_bwd_dq": dict(
-                    max_abs_err=errs["dq"][0], ms=t["K2"],
-                    plain_ms=t["K2 plain"], library_ms=lib_ms,
-                    **bound(6 * d * pairs, nbytes(*ins, dq), dtype)),
-                "flash_bwd_dkv": dict(
-                    max_abs_err=max(errs["dk"][0], errs["dv"][0]),
-                    ms=t["K3"], plain_ms=t["K3 plain"], library_ms=lib_ms,
-                    **bound(8 * d * pairs, nbytes(*ins, dk, dv), dtype))}
-            phase(f"K2+K3 main case: SDPA backward {lib_ms:.4f} ms; bounds "
-                  f"K2 {main['flash_bwd_dq']['bound_ms']:.4f} ms, K3 "
-                  f"{main['flash_bwd_dkv']['bound_ms']:.4f} ms")
+            main = recs
+            for rec in main.values():
+                rec["library_ms"] = lib_ms
+            phase(f"K2+K3 main case: {t['K2'] + t['K3']:.4f} ms, SDPA "
+                  f"backward {lib_ms:.4f} ms (ratio "
+                  f"{(t['K2'] + t['K3']) / lib_ms:.3f}); bounds K2 "
+                  f"{main['flash_bwd_dq']['bound_ms']:.4f} ms, K3 "
+                  f"{main['flash_bwd_dkv']['bound_ms']:.4f} ms [{card}]")
             del leaves, lib_out
         del q, k, v, do, out, lse, delta, dq, dk, dv, ref_dq, ref_dk, ref_dv
     torch.cuda.empty_cache()

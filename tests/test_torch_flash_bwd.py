@@ -8,7 +8,10 @@ causal with q_offset, row-broadcast and full bias, GQA groups 1/2/4,
 Lq != Lk, ragged lengths, fully-masked rows (zero gradient from both).
 ``gradcheck`` holds the Function to finite differences at fp64. The cases
 marked ``cuda`` run the hand-written kernels against the plain versions
-and skip without a card. JAX is loaded by the ``jx`` fixture, so the
+and skip without a card: fp32 (CUDA cores) within 1e-4 of each gradient's
+max, bf16 (tensor cores, P and dS rounded to bf16 before their products)
+within ``chip_smoke.grad_atol`` with ``chip_smoke.flash_bwd_rounding``'s
+term. JAX is loaded by the ``jx`` fixture, so the
 card's cases also run where JAX is not installed."""
 
 from types import SimpleNamespace
@@ -17,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import flash_bwd_rounding, grad_atol
 from vyomai_tpu_torch.core.masks import NEG_INF
+from vyomai_tpu_torch.ops import flash_attention as fa
 from vyomai_tpu_torch.ops.flash_attention import (
     _delta, flash_attention_bias, flash_attention_bwd,
     flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref,
@@ -183,13 +188,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def bf16_atol(ref: torch.Tensor) -> float:
-    """Same bf16 inputs on both sides, fp32 reductions: fp32 order (1e-4
-    of the largest value) plus one bf16 ulp of the output after the final
-    cast."""
-    return (2.0 ** -7 + 1e-4) * float(ref.float().abs().max()) + 1e-6
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,h,h_kv,lq,lk,causal,bias_rows,q_offset", [
@@ -222,9 +220,14 @@ def test_kernels_match_plain_on_card(cuda, dtype, d, h, h_kv, lq, lk, causal,
         before[0] + 1, before[1] + 1)
     want = flash_attention_bwd_ref(q, k, v, bias, out, lse, do,
                                    causal=causal, q_offset=q_offset)
-    for x, ref in zip(got, want):
-        atol = (1e-4 * float(ref.abs().max()) + 1e-6
-                if dtype == torch.float32 else bf16_atol(ref))
+    rounding = {}
+    if dtype == torch.bfloat16:   # the tensor cores round P and dS to bf16
+        rounding = flash_bwd_rounding(fa, q, k, v, bias, do, lse,
+                                      _delta(out, do), causal=causal,
+                                      q_offset=q_offset)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        atol = grad_atol(ref, dtype == torch.bfloat16,
+                         rounding.get(name, 0.0))
         torch.testing.assert_close(x.float(), ref.float(), atol=atol,
                                    rtol=0)
     if bias_rows > 1:

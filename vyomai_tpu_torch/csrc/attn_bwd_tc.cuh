@@ -26,6 +26,12 @@
 // L = 197 that issues 208 of 256 rows against 224 (dq) or 208 (dk/dv) of
 // 256 columns.
 //
+// K2/K3's `flash_bwd_dq_kernel_tc` and `flash_bwd_dkv_kernel_tc`
+// (flash_bwd.cu) use the same routines with the forward's lse in place of
+// (max, sum): `load_lse_delta` fills a stage with a q tile's lse and delta,
+// `mma_abt_a` reads the warp's K or V rows from shared memory one 16-deep
+// chunk at a time, and `bias_at` reads a bias tile transposed.
+//
 // Rounding: S and dP come out of the tensor cores in fp32 from bf16
 // operands; P and dS are fp32 until they are rounded to bf16 as the A
 // operand of their products (the plain version keeps them fp32), which
@@ -91,6 +97,32 @@ __device__ __forceinline__ void load_row_stats(const float* __restrict__ ms,
                       live ? 4 : 0);
 }
 
+// Floats of a K2/K3 row stage: lse x 64, then delta x 64.
+constexpr int kLseStage = 2 * kTile;
+
+// Issue the copies of rows [row0, row0 + 64) of lse and delta into a ring
+// stage of kLseStage floats; rows at or past `rows` are zero-filled. A
+// (batch, head)'s rows start at 4 Lq bytes, not 16-byte aligned for odd Lq:
+// 4-byte copies, one a thread.
+__device__ __forceinline__ void load_lse_delta(const float* __restrict__ lse,
+                                               const float* __restrict__ dl,
+                                               int row0, int rows,
+                                               float* dst, int tid) {
+  static_assert(kThreads == kLseStage, "one copy a thread");
+  const int r = tid & (kTile - 1);
+  const bool live = row0 + r < rows;
+  const float* src = tid < kTile ? lse : dl;
+  cp_async_small<4>(smem_addr(dst + tid), live ? src + row0 + r : src,
+                    live ? 4 : 0);
+}
+
+// The bias of (tile row rl, tile column cl) from a [64][64] ring stage
+// (load_bias's swizzle), one float: K3 reads its q-row tile transposed,
+// with keys as its fragments' rows.
+__device__ __forceinline__ float bias_at(const float* t, int rl, int cl) {
+  return t[(rl * 16 + ((cl >> 2) ^ (rl & 7))) * 4 + (cl & 3)];
+}
+
 // A fragments of rows [row0, row0 + 16) of a swizzled [64][D] tile.
 template <int D>
 __device__ __forceinline__ void load_a(uint32_t tile, int row0,
@@ -102,29 +134,59 @@ __device__ __forceinline__ void load_a(uint32_t tile, int row0,
             af[kc][0], af[kc][1], af[kc][2], af[kc][3]);
 }
 
+// c += A.B^T over one 16-deep chunk kc of D: `af` a warp's A fragment of
+// that chunk, B rows [row0, row0 + 8 NT) of a swizzled [64][D] tile.
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt_kc(const uint32_t (&af)[4],
+                                           uint32_t tile, int row0, int kc,
+                                           float (&c)[NT][4]) {
+  static_assert(NT % 2 == 0, "n-tiles come in pairs");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4(tile + swz<D>(row0 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                          kc * 2 + ((lane >> 3) & 1)) * 16,
+            b0, b1, b2, b3);
+    mma_bf16(c[2 * np], af, b0, b1);
+    mma_bf16(c[2 * np + 1], af, b2, b3);
+  }
+}
+
 // c = A.B^T for a warp's 16 rows (A fragments `af`, 16 x D) and rows
 // [row0, row0 + 8 NT) of a swizzled [64][D] tile: NT n-tiles of 8 columns.
 template <int D, int NT>
 __device__ __forceinline__ void mma_abt(const uint32_t (&af)[D / 16][4],
                                         uint32_t tile, int row0,
                                         float (&c)[NT][4]) {
-  static_assert(NT % 2 == 0, "n-tiles come in pairs");
-  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc)
+    mma_abt_kc<D, NT>(af[kc], tile, row0, kc, c);
+}
+
+// mma_abt with the A fragments read from rows [a_row0, a_row0 + 16) of a
+// swizzled [64][D] tile one 16-deep chunk at a time (4 registers live,
+// not D / 4: what keeps K3's two accumulators at D = 128 in registers).
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt_a(uint32_t a_tile, int a_row0,
+                                          uint32_t tile, int row0,
+                                          float (&c)[NT][4]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4(tile + swz<D>(row0 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
-                            kc * 2 + ((lane >> 3) & 1)) * 16,
-              b0, b1, b2, b3);
-      mma_bf16(c[2 * np], af[kc], b0, b1);
-      mma_bf16(c[2 * np + 1], af[kc], b2, b3);
-    }
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t af[4];
+    ldsm_x4(a_tile + swz<D>(a_row0 + (lane & 15), kc * 2 + (lane >> 4)) * 16,
+            af[0], af[1], af[2], af[3]);
+    mma_abt_kc<D, NT>(af, tile, row0, kc, c);
+  }
 }
 
 // acc += bf16(p).B: p the fp32 C fragments of a warp's 16 x 16 KK block

@@ -25,10 +25,14 @@ the plain versions here:
 
 Each wrapper routes a CPU tensor to its plain version and launches its
 kernel for a CUDA tensor, raising on what the kernel does not take; there
-is no fallback between the two. On the card the forward dispatches by
-dtype: bf16 runs on the tensor cores (``flash_fwd_kernel_tc``: P is
-rounded to bf16 before the value product), fp32 on the CUDA cores
-(``flash_fwd_kernel``); either raises on failure.
+is no fallback between the two. On the card each kernel dispatches by
+dtype: bf16 runs on the tensor cores (``flash_fwd_kernel_tc``,
+``flash_bwd_dq_kernel_tc``, ``flash_bwd_dkv_kernel_tc``: P, and in the
+backward dS, rounded to bf16 before their products), fp32 on the CUDA
+cores (``flash_fwd_kernel``, ``flash_bwd_dq_kernel``,
+``flash_bwd_dkv_kernel``); either raises on failure. The tensor-core
+kernels read the bias through 16-byte aligned rows, so their wrappers pass
+it through ``_aligned_bias``.
 """
 
 from typing import Optional
@@ -144,8 +148,7 @@ def _check(cond: bool, name: str, msg: str):
 
 
 def _validate(name: str, q, k, v, bias, *others):
-    """Raise on what the kernels do not take; return the bias strides
-    ``(b, h, q)`` (0 for a broadcast dim)."""
+    """Raise on what the kernels do not take."""
     b, h, lq, d = q.shape
     h_kv, lk = k.shape[1], k.shape[2]
     main = (q, k, v, *others)
@@ -163,19 +166,17 @@ def _validate(name: str, q, k, v, bias, *others):
     _check(all(t.data_ptr() % 16 == 0 for t in main), name,
            "q/k/v (and dO) must be 16-byte aligned")
     if bias is None:
-        return 0, 0, 0
+        return
     _check(bias.dtype == torch.float32, name, "bias must be float32")
     _check(bias.dim() == 4 and bias.shape[0] in (1, b)
            and bias.shape[1] in (1, h) and bias.shape[2] in (1, lq)
            and bias.shape[3] == lk, name,
            "bias must be [B|1, H|1, Lq|1, Lk]")
     _check(bias.stride(3) == 1, name, "bias must be contiguous in Lk")
-    return tuple(0 if bias.shape[i] == 1 else bias.stride(i)
-                 for i in range(3))
 
 
 def _aligned_bias(bias):
-    """``bias`` as the tensor-core forward reads it: 16-byte aligned rows
+    """``bias`` as the tensor-core kernels read it: 16-byte aligned rows
     (every stride of a non-broadcast dim a multiple of 4 floats). Else a
     copy whose rows are padded to 4 floats, viewed back to ``Lk``."""
     if bias is None or (bias.data_ptr() % 16 == 0 and all(
@@ -224,11 +225,8 @@ def flash_attention_fwd(q, k, v, bias=None, *, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, bias, causal=causal,
                                        q_offset=q_offset)
-    sb, sh, sq = _validate("flash_attention_fwd", q, k, v, bias)
-    if q.dtype == torch.bfloat16 and bias is not None:
-        bias = _aligned_bias(bias)
-        sb, sh, sq = (0 if bias.shape[i] == 1 else bias.stride(i)
-                      for i in range(3))
+    _validate("flash_attention_fwd", q, k, v, bias)
+    bias, (sb, sh, sq) = _kernel_bias(q, bias)
     b, h, h_kv, lq, lk, d, q_offset = _dims(q, k, q_offset)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -244,13 +242,26 @@ def flash_attention_fwd(q, k, v, bias=None, *, causal: bool = False,
     return out, lse
 
 
+def _kernel_bias(q, bias):
+    """The bias a kernel reads (bf16: ``_aligned_bias``) and its strides
+    ``(b, h, q)``, 0 for a broadcast dim."""
+    if bias is None:
+        return None, (0, 0, 0)
+    if q.dtype == torch.bfloat16:
+        bias = _aligned_bias(bias)
+    return bias, tuple(0 if bias.shape[i] == 1 else bias.stride(i)
+                       for i in range(3))
+
+
 def _bwd_inputs(name, q, k, v, bias, do, lse, delta):
-    strides = _validate(name, q, k, v, bias, do)
+    """Validate a backward kernel's operands; return the bias it reads
+    and its strides."""
+    _validate(name, q, k, v, bias, do)
     rows = q.shape[:3]
     _check(all(t.dtype == torch.float32 and t.shape == rows
                and t.is_contiguous() for t in (lse, delta)), name,
            "lse and delta must be contiguous fp32 [B, H, Lq]")
-    return strides
+    return _kernel_bias(q, bias)
 
 
 def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, causal: bool = False,
@@ -260,7 +271,8 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, causal: bool = False,
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, bias, do, lse, delta,
                                 causal=causal, q_offset=q_offset)
-    sb, sh, sq = _bwd_inputs("flash_bwd_dq", q, k, v, bias, do, lse, delta)
+    bias, (sb, sh, sq) = _bwd_inputs("flash_bwd_dq", q, k, v, bias, do,
+                                     lse, delta)
     b, h, h_kv, lq, lk, d, q_offset = _dims(q, k, q_offset)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
@@ -282,7 +294,8 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, delta, *, causal: bool = False,
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, bias, do, lse, delta,
                                  causal=causal, q_offset=q_offset)
-    sb, sh, sq = _bwd_inputs("flash_bwd_dkv", q, k, v, bias, do, lse, delta)
+    bias, (sb, sh, sq) = _bwd_inputs("flash_bwd_dkv", q, k, v, bias, do,
+                                     lse, delta)
     b, h, h_kv, lq, lk, d, q_offset = _dims(q, k, q_offset)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
