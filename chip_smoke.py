@@ -10,8 +10,8 @@ and exits non-zero):
 1. device and set-up: require CUDA, disable TF32, print the card's name and
    power limit, build the CUDA kernels from ``vyomai_tpu_torch/csrc``, and
    count with ``cuobjdump`` the tensor-core (HMMA) instructions and the
-   registers of each bf16 attention kernel (the forwards K1, K5/K6 and the
-   backwards K2/K3 and K7);
+   registers of each bf16 tensor-core kernel (the attention forwards K1,
+   K5/K6, the backwards K2/K3 and K7, and K8's int8 matmul);
 2. K4 paged decode against its plain version at the serving shapes;
 3. K1 flash forward against its plain version at the prefill and training
    shapes and the contract's edges (ragged, causal, fully masked rows);
@@ -43,9 +43,11 @@ and exits non-zero):
     B=64 and S=512 B=16 on both routes (K5/K7 on "auto");
 12. encoder numerics: ViT and MLM at 2 layers and fp32, loss and every
     gradient on the card (kernels) against the CPU (plain versions);
-13. K8 (int8, kn and nk), K9 (int4 fold and split) and K10 (stream and
-    noscale) against their plain versions at Qwen3-0.6B's decode shapes,
-    the tied head and a prefill shape, bf16 and fp32; then the K10 path
+13. K8 (int8, kn and nk; bf16 nk on the tensor cores), K9 (int4 fold and
+    split) and K10 (stream and noscale) against their plain versions at
+    Qwen3-0.6B's decode shapes, the tied head, a prefill shape and ragged
+    M, bf16 and fp32, with K8's route, splits and grid, and the split-K
+    reduction's determinism; then the K10 path
     (``quant_bench.int4_attribution``);
 14. K4's int8 and int4 pool variants against their plain versions at
     phase 2's shapes;
@@ -153,6 +155,26 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
+def zero_launches(kernels):
+    """Set the launch counts of these wrappers to 0 (K8's wrapper also
+    counts its tensor-core launches apart, ``tc_launches``)."""
+    for fn in kernels:
+        fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
+
+
+def kernel_launches(kernels) -> dict:
+    """{wrapper name: launches}, with K8's tensor-core launches as
+    ``int8_matmul_kernel_tc``."""
+    out = {}
+    for fn in kernels:
+        out[fn.__name__] = fn.launches
+        if hasattr(fn, "tc_launches"):
+            out[f"{fn.__name__}_kernel_tc"] = fn.tc_launches
+    return out
+
+
 def achieved(flops: float, ms: float, rec: dict) -> str:
     """Achieved TFLOP/s and the share of the bound a kernel time reaches."""
     return (f"{flops / ms / 1e9:.1f} TFLOP/s, {rec['bound_ms'] / ms:.3f} of "
@@ -161,9 +183,10 @@ def achieved(flops: float, ms: float, rec: dict) -> str:
 
 def tensor_core_kernels(so: Path) -> dict:
     """HMMA (tensor-core) instructions, registers and stack bytes of each
-    bf16 attention kernel in the built library, from ``cuobjdump -sass``
-    and ``-res-usage``: {"flash_fwd_kernel_tc<64>": (hmma, regs, stack),
-    ...}."""
+    bf16 tensor-core kernel in the built library (the attention kernels and
+    K8's), from ``cuobjdump -sass`` and ``-res-usage``:
+    {"flash_fwd_kernel_tc<64>": (hmma, regs, stack),
+    "int8_matmul_kernel_tc<1,1>": ..., ...}."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
         "cuobjdump"
 
@@ -171,24 +194,31 @@ def tensor_core_kernels(so: Path) -> dict:
         return subprocess.run([str(tool), flag, str(so)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
 
+    # a template's int parameters, mangled: ILi64E, ILi1ELi2EE
     pat = re.compile(r"(flash_fwd_kernel_tc|flash_bwd_dq_kernel_tc|"
                      r"flash_bwd_dkv_kernel_tc|short_fwd_kernel_tc|"
-                     r"short_bwd_dq_kernel_tc|short_bwd_dkv_kernel_tc)"
-                     r"ILi(\d+)E")
+                     r"short_bwd_dq_kernel_tc|short_bwd_dkv_kernel_tc|"
+                     r"int8_matmul_kernel_tc)I((?:Li\d+E)+)")
+
+    def kernel_name(line):
+        m = pat.search(line)
+        if not m:
+            return None
+        args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+        return f"{m.group(1)}<{args}>"
+
     found, name = {}, None
     for line in dump("-sass").splitlines():
         if "Function :" in line:
-            m = pat.search(line)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            name = kernel_name(line)
             if name:
                 found[name] = [0, None, None]
         elif name and "HMMA" in line:
             found[name][0] += 1
     name = None
     for line in dump("-res-usage").splitlines():
-        m = pat.search(line)
         if "Function" in line:
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            name = kernel_name(line)
         elif name in found:
             regs = re.search(r"REG:(\d+)", line)
             stack = re.search(r"STACK:(\d+)", line)
@@ -204,7 +234,8 @@ TC_KERNELS = ("flash_fwd_kernel_tc<128>", "flash_fwd_kernel_tc<64>",
               "short_fwd_kernel_tc<64>", "short_bwd_dq_kernel_tc<128>",
               "short_bwd_dq_kernel_tc<32>", "short_bwd_dq_kernel_tc<64>",
               "short_bwd_dkv_kernel_tc<128>", "short_bwd_dkv_kernel_tc<32>",
-              "short_bwd_dkv_kernel_tc<64>")
+              "short_bwd_dkv_kernel_tc<64>", "int8_matmul_kernel_tc<1,1>",
+              "int8_matmul_kernel_tc<4,4>")
 
 
 def live_mask(torch, bias, lq, lk, causal, q_offset):
@@ -626,8 +657,8 @@ def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
     ``max_batch`` lanes at position ``ctx``, over blocks of the engine's
     pool: (device kernel ms per step from a ``torch.profiler`` trace of the
     tick, wall ms per step of the same tick unprofiled, the three kernels
-    with the most device time). The device figure is None when the
-    profiler saw no device time."""
+    with the most device time, K8's device ms per step). The device
+    figures are None when the profiler saw no device time."""
     b, bs, maxb = eng.max_batch, eng.block_size, eng.max_blocks_per_seq
     need = -(-(ctx + steps) // bs)
     dev = eng.device
@@ -663,8 +694,10 @@ def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
     total = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
+    k8 = sum(v for k, v in per_kernel.items() if "int8_matmul_kernel" in k)
     return ((total / steps) if total > 0 else None, wall,
-            [(k[:60], round(v / steps, 4)) for k, v in top])
+            [(k[:60], round(v / steps, 4)) for k, v in top],
+            (k8 / steps) if total > 0 else None)
 
 
 def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
@@ -697,8 +730,7 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
              for _ in range(16)]
     wave2 = [wave1[i][:256] + rng.integers(
         0, cfg.vocab_size, rng.integers(20, 61)).tolist() for i in range(8)]
-    for fn in kernels:
-        fn.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     outs = {}
     for wave in (wave1, wave2):
@@ -707,7 +739,7 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
         outs.update({i: done[i] for i in ids})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = kernel_launches(kernels)
     m = eng.metrics()
     check(len(outs) == 24, f"{len(outs)} of 24 requests returned")
     check(all(len(t) == 64 for t in outs.values()), "a request != 64 tokens")
@@ -722,9 +754,11 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
         same = sum(a == b for i in outs for a, b in zip(outs[i],
                                                         reference[i]))
         agree = f", greedy tokens agreeing with bf16 {same / tokens:.4f}"
-    dev_ms, wall_ms, top = decode_tick_ms(torch, pm, eng)
+    dev_ms, wall_ms, top, k8_ms = decode_tick_ms(torch, pm, eng)
     dev_txt = "not measured" if dev_ms is None else \
         f"{dev_ms:.4f} ms (idle {1 - dev_ms / wall_ms:.3f})"
+    if quant is not None and k8_ms is not None:
+        dev_txt += f", K8 {k8_ms:.4f} ms"
     phase(f"serving Qwen3-0.6B width {label}: {tokens} tokens in "
           f"{wall:.3f} s = {tokens / wall:.1f} tok/s, mean TTFT "
           f"{m['ttft_mean_s']:.4f} s, prefix hits {m['radix_hits']} "
@@ -760,8 +794,7 @@ def phase_numerics(torch, np, tt, pm, label="fp32", quant=None,
     pre = [prompt[None], pos[None], (table[0][pos // bs])[None],
            (pos % bs)[None], table, np.array([t]), np.array([t])]
     logits, pools = {}, {}
-    for fn in kernels:
-        fn.launches = 0
+    zero_launches(kernels)
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
         pool = pools[dev] = pm.init_pool(
             cfg, maxb, bs, dtype=pool_dtype or torch.float32, device=dev)
@@ -783,8 +816,8 @@ def phase_numerics(torch, np, tt, pm, label="fp32", quant=None,
         logits[dev] = [s.float().cpu() for s in steps]
         if dev == "cpu":
             cpu_tokens = [int(s.argmax(-1)[0]) for s in steps[:-1]]
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    check(all(n > 0 for n in launches.values()),
+    launches = kernel_launches(kernels)   # fp32: no tensor-core K8
+    check(all(launches[fn.__name__] > 0 for fn in kernels),
           f"numerics {label}: a kernel never ran on the card: {launches}")
     errs = [float((a - b).abs().max())
             for a, b in zip(logits["cpu"], logits["cuda"])]
@@ -798,6 +831,7 @@ def phase_numerics(torch, np, tt, pm, label="fp32", quant=None,
           f"{max(errs)} > {tol}")
     phase(f"numerics 2L {label} prefill(520)+8 decode: per-step max "
           f"|dlogit| {errs} (tol {tol}){flips}; launches {launches}")
+    return launches
 
 
 def phase_w8a8_linears(torch, np, tt, qm, pm):
@@ -1246,12 +1280,16 @@ QWEN3_HEAD = (1024, 151936)
 
 def phase_quant_matmul(torch, qm, qb, flush, card):
     """K8 (kn and nk) at decode M=16 over every Qwen3-0.6B linear shape and
-    the tied head, and at prefill M=2,048 for 1024->3072; K9 fold and split
-    at the linear shapes (gs=128); K10 stream and noscale at M=8,
-    K=N=2,048; bf16 and fp32, each against its plain version, with the
-    dense bf16 ``torch.matmul`` (and ``torch._weight_int8pack_mm`` where it
-    runs) as library times. Then the K10 path: ``quant_bench``'s int4
-    attribution, counts zeroed before and read after."""
+    the tied head, at prefill M=2,048 for 1024->3072, and at ragged M (1,
+    7, 17, 100) and N (1,000); K9 fold and split at the linear shapes
+    (gs=128); K10 stream and noscale at M=8, K=N=2,048; bf16 and fp32,
+    each against its plain version, with the dense bf16 ``torch.matmul``
+    (and ``torch._weight_int8pack_mm`` where it runs) as library times.
+    Each K8 case prints its route (``int8_route``: bf16 ``nk`` on the
+    tensor cores) and, on the tensor cores, its tile, splits and grid. Two
+    calls at a split-K shape must give the same bits and leave the tile
+    counters at 0. Then the K10 path: ``quant_bench``'s int4 attribution,
+    counts zeroed before and read after."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1262,6 +1300,9 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
                       for lay in ("kn", "nk")]
     cases += [("K8", "prefill", 2048, 1024, 3072, dt, lay)
               for dt in (bf, f32) for lay in ("kn", "nk")]
+    cases += [("K8", "ragged", m, 1024, 1000, bf, lay)
+              for m in (1, 7, 17, 100) for lay in ("kn", "nk")]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for k, n in QWEN3_LINEARS:
         for dt in (bf, f32):
             cases += [("K9", "decode", 16, k, n, dt, mode)
@@ -1279,11 +1320,19 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
             del w
         q, s, p, s4 = weights[(k, n)]
         x = torch.randn(m, k, device=dev, generator=g).to(dt)
+        route = ""
         if kern == "K8":
             wq = q if var == "kn" else q.t().contiguous()
             fn = lambda: qm.int8_matmul(x, wq, s, w_layout=var)  # noqa
             ref_fn = lambda: qm.int8_matmul_ref(x, wq, s, var)  # noqa
             wbytes = nbytes(wq, s)
+            route = qm.int8_route(x, wq, var)
+            if route == "tc":
+                bm, bn, splits = qm.int8_tc_plan(m, k, n, sms)
+                grid = -(-m // bm) * -(-n // bn) * splits
+                route += (f" tile {bm}x{bn} splits {splits} grid {grid} "
+                          f"CTAs")
+            route = f" route {route},"
         elif kern == "K9":
             fn = lambda: qm.int4_matmul(x, p, s4, kernel=var)  # noqa
             ref_fn = lambda: qm.int4_matmul_ref(x, p, s4, var)  # noqa
@@ -1327,8 +1376,9 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
             rec["library_ms"] = lib_seen[key][0]
             extra = (f", bf16 matmul {lib_seen[key][0]:.4f} ms, "
                      f"_weight_int8pack_mm {lib_seen[key][1]}")
-        phase(f"{kern} {var} {label} M={m} K={k} N={n} {str(dt)[6:]}: "
-              f"max_abs_err={err:.3g} (atol {atol:.3g}) kernel {ms:.4f} ms, "
+        phase(f"{kern} {var} {label} M={m} K={k} N={n} {str(dt)[6:]}:"
+              f"{route} max_abs_err={err:.3g} (atol {atol:.3g}) kernel "
+              f"{ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}){extra} [{card}]")
         if dt == bf and (
@@ -1337,8 +1387,27 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
                     and var == "fold")
                 or (kern == "K10" and var == "stream")):
             main[kern] = rec
+        if (kern, label, dt, var) == ("K8", "decode", bf, "kn") and \
+                (k, n) == QWEN3_HEAD:
+            main["K8-cuda"] = rec   # the CUDA-core kernel at the head
         del x, out, ref
     weights.clear()
+    # determinism of the split-K reduction: same bits, counters back at 0
+    m, k, n = 16, 3072, 1024
+    x = torch.randn(m, k, device=dev, generator=g).to(bf)
+    q, s = qm.quantize_weight(torch.randn(n, k, device=dev, generator=g),
+                              contract_axis=1)
+    splits = qm.int8_tc_plan(m, k, n, sms)[2]
+    outs = [qm.int8_matmul(x, q, s, w_layout="nk") for _ in range(5)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(o, outs[0]) for o in outs[1:])
+    counters = int(qm._WORKSPACE[0][1].abs().sum())
+    check(splits > 1 and same and counters == 0,
+          f"K8 split-K M={m} K={k} N={n}: splits {splits}, identical bits "
+          f"{same}, counters left {counters}")
+    phase(f"K8 split-K determinism M={m} K={k} N={n} splits {splits}: 5 "
+          f"calls bit-identical, tile counters back at 0")
+    del x, q, s, outs
     torch.cuda.empty_cache()
     qm.int4_attribution.launches = 0
     att = qb.int4_attribution()
@@ -1451,13 +1520,13 @@ def main():
     phase(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds} s)")
     tc = tensor_core_kernels(_build.path)
-    phase("bf16 attention kernels (HMMA instructions, registers, stack "
+    phase("bf16 tensor-core kernels (HMMA instructions, registers, stack "
           f"bytes): {tc}")
     check(sorted(tc) == sorted(TC_KERNELS)
           and all(hmma > 0 for hmma, _, _ in tc.values()),
-          f"a bf16 attention kernel without tensor-core code: {tc}")
+          f"a bf16 tensor-core kernel without tensor-core code: {tc}")
     check(all(stack == 0 for _, _, stack in tc.values()),
-          f"a bf16 attention kernel spills: {tc}")
+          f"a bf16 tensor-core kernel spills: {tc}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     phase("2/16 K4 paged decode vs plain")
@@ -1514,9 +1583,9 @@ def main():
                   f" vs bf16 {bf_ms:.4f} (ratio "
                   f"{run['device_ms'] / bf_ms:.4f}) [{card}]")
     phase("16/16 quantized numerics")
-    phase_numerics(torch, np, tt, pm, "fp32 int8 weights + int8 pool",
-                   quant=dict(bits=8), pool_dtype=torch.int8,
-                   kernels=(qm.int8_matmul, pdm.paged_decode_int8))
+    n8 = phase_numerics(torch, np, tt, pm, "fp32 int8 weights + int8 pool",
+                        quant=dict(bits=8), pool_dtype=torch.int8,
+                        kernels=(qm.int8_matmul, pdm.paged_decode_int8))
     # K/V computed on the two devices differ in fp32 rounding, and where
     # one lies at a rounding boundary its int4 entry lands a whole step
     # (amax/7 of its head) apart: a wider bound than int8's (the count of
@@ -1566,11 +1635,16 @@ def main():
          "replaces": "vyomai_tpu/ops/short_attention.py:309",
          "launches": vit["short_attention_bwd"]
          + mlm["short_attention_bwd"], **k567["K7"]},
+        {"name": "int8_matmul_kernel_tc", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "vyomai_tpu/ops/quant_matmul.py:123",
+         "launches": q8["launches"]["int8_matmul_kernel_tc"]
+         + q4["launches"]["int8_matmul_kernel_tc"], **qmm["K8"]},
+        # fp32 and kn stay on the CUDA cores: phase 16's fp32 path
         {"name": "int8_matmul", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "vyomai_tpu/ops/quant_matmul.py:107",
-         "launches": q8["launches"]["int8_matmul"]
-         + q4["launches"]["int8_matmul"], **qmm["K8"]},
+         "launches": n8["int8_matmul"], **qmm["K8-cuda"]},
         {"name": "int4_matmul", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "vyomai_tpu/ops/quant_matmul.py:276",

@@ -212,12 +212,14 @@ def test_wrappers_count_no_cpu_launch():
     x = torch.randn(3, 64)
     q, s = tqm.quantize_weight(torch.randn(64, 32))
     p, s4 = tqm.quantize_weight_int4(torch.randn(64, 32), group_size=32)
-    before = (tqm.int8_matmul.launches, tqm.int4_matmul.launches,
-              tqm.int4_attribution.launches)
+    before = (tqm.int8_matmul.launches, tqm.int8_matmul.tc_launches,
+              tqm.int4_matmul.launches, tqm.int4_attribution.launches)
     tqm.int8_matmul(x, q, s)
+    tqm.int8_matmul(x.bfloat16(), q.t().contiguous(), s, w_layout="nk")
     tqm.int4_matmul(x, p, s4)
     tqm.int4_attribution(x, p, s4, mode="stream", scale_row=0)
-    assert (tqm.int8_matmul.launches, tqm.int4_matmul.launches,
+    assert (tqm.int8_matmul.launches, tqm.int8_matmul.tc_launches,
+            tqm.int4_matmul.launches,
             tqm.int4_attribution.launches) == before
 
 
@@ -390,20 +392,69 @@ def _atol(ref: torch.Tensor, dtype) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(16, 1024, 2048), (37, 200, 90),
-                                   (300, 512, 1024)])
+@pytest.mark.parametrize("m,k,n", [
+    (16, 1024, 2048), (37, 200, 90), (300, 512, 1024),
+    # the tensor-core route: ragged M and N, decode and prefill tiles
+    (1, 1024, 1000), (7, 1024, 1000), (16, 1024, 1000), (17, 1024, 1000),
+    (100, 1024, 1000), (2048, 1024, 1000),
+    # split-K (decode's narrow N), and K % 64 != 0 (a partial last step)
+    (16, 3072, 1024), (1, 3072, 1024), (5, 1040, 300)])
 def test_int8_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m)
     x = torch.randn(m, k, device=cuda, generator=g).to(dtype)
     q, s = tqm.quantize_weight(torch.randn(k, n, device=cuda, generator=g))
     for layout, w in (("kn", q), ("nk", q.t().contiguous())):
-        before = tqm.int8_matmul.launches
+        before = (tqm.int8_matmul.launches, tqm.int8_matmul.tc_launches)
         out = tqm.int8_matmul(x, w, s, w_layout=layout)
         torch.cuda.synchronize()
-        assert tqm.int8_matmul.launches == before + 1
+        tc = int(dtype == torch.bfloat16 and layout == "nk" and k % 16 == 0)
+        assert (tqm.int8_matmul.launches,
+                tqm.int8_matmul.tc_launches) == (before[0] + 1,
+                                                 before[1] + tc)
         ref = tqm.int8_matmul_ref(x, w, s, layout)
         torch.testing.assert_close(out.float(), ref.float(),
                                    atol=_atol(ref, dtype), rtol=0)
+
+
+@pytest.mark.cuda
+def test_int8_unaligned_nk_takes_the_cuda_cores_on_card(cuda):
+    """An ``nk`` weight view whose rows are not 16-byte aligned goes to the
+    CUDA-core kernel (the documented route) and still matches."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    m, k, n = 16, 1024, 500
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    q, s = tqm.quantize_weight(torch.randn(k, n, device=cuda, generator=g))
+    base = torch.zeros(n, k + 8, dtype=torch.int8, device=cuda)
+    base[:, :k] = q.t()
+    w = base[:, :k]
+    assert tqm.int8_route(x, w, "nk") == "cuda"
+    before = tqm.int8_matmul.tc_launches
+    out = tqm.int8_matmul(x, w, s, w_layout="nk")
+    torch.cuda.synchronize()
+    assert tqm.int8_matmul.tc_launches == before
+    ref = tqm.int8_matmul_ref(x, w, s, "nk")
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=_atol(ref, torch.bfloat16), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16, 3072, 1024), (16, 1024, 2048),
+                                   (17, 1024, 1000)])
+def test_int8_split_k_is_deterministic_on_card(cuda, m, k, n):
+    """A split-K plan gives the same bits on every call, whatever order its
+    CTAs finish in, and leaves every tile counter at 0."""
+    index = torch.cuda.current_device()
+    bm, bn, splits = tqm.int8_tc_plan(m, k, n, tqm._sm_count(index))
+    assert splits > 1
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    q, s = tqm.quantize_weight(torch.randn(n, k, device=cuda, generator=g),
+                               contract_axis=1)
+    outs = [tqm.int8_matmul(x, q, s, w_layout="nk") for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    counters = tqm._WORKSPACE[index][1]
+    assert int(counters.abs().sum()) == 0
 
 
 @pytest.mark.cuda

@@ -13,41 +13,67 @@
 // is used for 2 * 16 FLOPs: the weight stream over 3.35 TB/s is the bound,
 // and int8 / int4 storage is what halves / quarters it against bf16. At
 // prefill (M up to 2,048) the same call is bound by arithmetic: 2*M*K*N
-// FLOPs, which these kernels do as fp32 FMAs on CUDA cores (67 TFLOP/s
-// peak) rather than on tensor cores (989 TFLOP/s bf16).
+// FLOPs, 989 TFLOP/s on the bf16 tensor cores, 67 on the CUDA cores.
 //
-// Design, shaped by decode's 16 rows. A CTA of 8 warps owns 16 rows of x
-// (blockIdx.y) and 32 output columns (blockIdx.x), one column per lane,
-// and sweeps K in slabs of 128: the slab's x (16 x 128, as fp32) is staged
-// in shared memory, and warp w takes rows [16w, 16w + 16) of the slab.
-// Each lane reads its column's 16 weights of that chunk straight from
-// device memory into registers (one 16-byte load where k is contiguous,
-// byte loads otherwise; 8 packed bytes for int4), the next slab's chunk
-// loaded while the current one is consumed, widens them, and does 16 x 16
-// fp32 FMAs against x rows read from shared memory as broadcasts (every
-// lane of a warp reads the same x). The eight warps' partial sums are added
-// in a fixed order through shared memory (deterministic), and the epilogue
-// is the Pallas one: K8 multiplies the fp32 sum by scale[n] and rounds once
-// to x's dtype; K9 "fold" rounds each scaled weight (nibble * scale[g, n],
-// an fp32 product) to x's dtype before the sum; "split" multiplies each
-// 16-row slice's fp32 partial sum by its group's scale (group sizes are
-// multiples of 16, so a slice never straddles two groups); K10 "stream"
-// dots the packed bytes themselves with both the even and the odd row of
-// x, "noscale" the unpacked nibbles, each times one scale row
-// (`scale_row`) at the end. The int8 weight is addressed through (n, k)
-// strides, so the kn layout of the JAX package and the nk layout of the
-// tied head and of nn.Linear-shaped modules take the same kernel. Ragged
-// M, N and K are masked; M needs no padding.
+// Two designs. bf16 x against an `nk` weight ([N, K], k contiguous, 16-byte
+// aligned rows, K % 16 == 0: every int8 linear and tied head of the
+// serving modules) runs `int8_matmul_kernel_tc` on the tensor cores; fp32
+// x, the `kn` layout and unaligned operands run the CUDA-core kernels.
+// The wrapper picks the route and the tensor-core plan (tile, splits) from
+// the operands' dtype, layout, alignment and shape before any launch
+// (`ops/quant_matmul.py` `int8_route`, `int8_tc_plan`), and the launcher
+// refuses a plan the operands do not admit.
 //
-// Cost of the one tiling at prefill: CTAs of 16 rows read each weight
-// column once per 16 tokens, so at M = 2,048 (1024 -> 3072) every weight
-// byte is read 128 times, mostly from L2, and the 2*M*K*N = 12.9 GFLOP run
-// as CUDA-core FMAs: ~0.3 ms at half the fp32 peak, against 13 us at the
-// bf16 tensor-core rate. Narrow decode shapes (N = 1,024) give 32 CTAs, a
-// quarter of the SMs. Later work: mma/wgmma on bf16, split-K across CTAs
-// for narrow N, cp.async staging.
+// Tensor-core K8 (`int8_matmul_kernel_tc<MT, NT>`). A CTA of 4 warps owns
+// BM = 16 MT rows and BN = 32 NT columns; warp w takes columns [8 NT w,
+// 8 NT (w + 1)) of every row, so each weight byte is converted once per
+// CTA. K runs in steps of 64: the int8 tile [BN][64] and x's tile [BM][64]
+// (bf16, 16-byte chunks XOR-swizzled on the row) stream through a
+// `cp.async` ring of kQStages stages, zero-filled past M, N and K. Within a
+// step, lane (g, t4) reads bytes [16 t4, 16 t4 + 16) of its weight row with
+// one 16-byte load and x's elements [16 t4, 16 t4 + 16) of its two rows;
+// `mma.sync.m16n8k16` j (0..3) takes word j of those bytes, widened to
+// bf16 in registers (`i8x4_to_bf16`: exact, every int8 is a bf16), as its
+// B fragment and the matching x words as A. That permutes k inside the
+// 64-deep step identically for A and B, so the products are those of the
+// Pallas kernel, and every shared-memory read is a conflict-free 16-byte
+// load. Two tiles (`ops/quant_matmul.py` `int8_tc_plan`): 16 x 32 (MT = 1,
+// NT = 1) for decode, where the weight stream wants the most CTAs (4,748
+// at the tied head), and 64 x 128 (MT = 4, NT = 4) for prefill, where one
+// widened B fragment feeds four row tiles. The 16 x 32 tile splits K
+// across blockIdx.z when the tiles alone would not fill the SMs: each
+// split CTA writes fp32 partials to a workspace [S, M, N], and the last
+// CTA of a tile to finish (a counter, `__threadfence`, `atomicAdd`) sums
+// them in split order 0..S-1 (deterministic) and resets the counter to 0.
+// The epilogue is the Pallas one: the fp32 sum times scale[n], rounded
+// once to bf16.
+//
+// CUDA-core design, shaped by decode's 16 rows. A CTA of 8 warps owns 16
+// rows of x (blockIdx.y) and 32 output columns (blockIdx.x), one column
+// per lane, and sweeps K in slabs of 128: the slab's x (16 x 128, as fp32)
+// is staged in shared memory, and warp w takes rows [16w, 16w + 16) of the
+// slab. Each lane reads its column's 16 weights of that chunk straight
+// from device memory into registers (one 16-byte load where k is
+// contiguous, byte loads otherwise; 8 packed bytes for int4), the next
+// slab's chunk loaded while the current one is consumed, widens them, and
+// does 16 x 16 fp32 FMAs against x rows read from shared memory as
+// broadcasts (every lane of a warp reads the same x). The eight warps'
+// partial sums are added in a fixed order through shared memory
+// (deterministic), and the epilogue is the Pallas one: K8 multiplies the
+// fp32 sum by scale[n] and rounds once to x's dtype; K9 "fold" rounds each
+// scaled weight (nibble * scale[g, n], an fp32 product) to x's dtype
+// before the sum; "split" multiplies each 16-row slice's fp32 partial sum
+// by its group's scale (group sizes are multiples of 16, so a slice never
+// straddles two groups); K10 "stream" dots the packed bytes themselves
+// with both the even and the odd row of x, "noscale" the unpacked nibbles,
+// each times one scale row (`scale_row`) at the end. The int8 weight is
+// addressed through (n, k) strides, so the kn layout of the JAX package
+// and the nk layout take the same kernel. Ragged M, N and K are masked; M
+// needs no padding. Its costs: at M = 2,048 every weight byte is read 128
+// times and the FLOPs run as fp32 FMAs; N = 1,024 gives 32 CTAs.
 
 #include "common.cuh"
+#include "tc_common.cuh"
 
 namespace vyomai {
 
@@ -226,6 +252,265 @@ int4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp,
   reduce_store<T>(acc, red, srow, out, M, N, m0, blockIdx.x * kCols, tid);
 }
 
+// ------------------------------------------- tensor-core K8 (bf16, nk)
+
+constexpr int kQK = 64;        // k per ring step
+constexpr int kQStages = 4;    // ring depth (steps in flight: 3)
+
+// Bytes of a ring stage: the int8 tile [BN][64], then x's [BM][64] bf16.
+template <int MT, int NT>
+__host__ __device__ constexpr int tc_stage_bytes() {
+  return 32 * NT * kQK + 16 * MT * kQK * 2;
+}
+
+// Four int8 weights (a little-endian word, k ascending) as two bf16x2
+// words, exactly: each byte, offset to unsigned, becomes the low mantissa
+// bits of 2^23 (0x4B000000 | u = 2^23 + u as fp32), 2^23 + 128 is
+// subtracted, and the top half of the exact fp32 integer is its bf16.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650));
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651));
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652));
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653));
+  const float kBias = 8388736.f;   // 2^23 + 128
+  lo = __byte_perm(__float_as_uint(f0 - kBias), __float_as_uint(f1 - kBias),
+                   0x7632);
+  hi = __byte_perm(__float_as_uint(f2 - kBias), __float_as_uint(f3 - kBias),
+                   0x7632);
+}
+
+// 32-bit word i (a constant once unrolled) of a 16-byte vector.
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Issue the copies of k step `k0` into a ring stage: weight rows [n0, n0 +
+// BN) at 64 bytes a row (rows r, r + 1 fill one 128-byte line, so a
+// quarter-warp's 16-byte reads of two rows are conflict-free), and x rows
+// [m0, m0 + BM) with chunk c of row r at c ^ (r & 7). Past M, N or K the
+// chunk is zero-filled (K % 16 == 0: a chunk is wholly in or out).
+template <int MT, int NT>
+__device__ __forceinline__ void tc_load_step(
+    const tc::bf16* __restrict__ x, const int8_t* __restrict__ w, int M,
+    int N, int K, long long sn, int m0, int n0, int k0, char* stage,
+    int tid) {
+  constexpr int BM = 16 * MT, BN = 32 * NT;
+  const uint32_t wbase = tc::smem_addr(stage);
+  const uint32_t xbase = wbase + BN * kQK;
+#pragma unroll
+  for (int it = 0; it < BN * 4 / tc::kThreads; ++it) {
+    const int i = tid + it * tc::kThreads, r = i >> 2, c = i & 3;
+    const int gk = k0 + 16 * c;
+    const bool live = n0 + r < N && gk < K;
+    const int8_t* src = live ? w + (long long)(n0 + r) * sn + gk : w;
+    tc::cp_async16(wbase + i * 16, src, live ? 16 : 0);
+  }
+#pragma unroll
+  for (int it = 0; it < BM * 8 / tc::kThreads; ++it) {
+    const int i = tid + it * tc::kThreads, r = i >> 3, c = i & 7;
+    const int gk = k0 + 8 * c;
+    const bool live = m0 + r < M && gk < K;
+    const tc::bf16* src = live ? x + (long long)(m0 + r) * K + gk : x;
+    tc::cp_async16(xbase + (r * 8 + (c ^ (r & 7))) * 16, src, live ? 16 : 0);
+  }
+}
+
+// One k step of a warp: acc[mi][nt] += x rows (16 mi ..) . weight columns
+// (8 nt ..) of the warp, over the stage's 64 k. Lane (g, t4) holds bytes
+// [16 t4, 16 t4 + 16) of weight row 8 nt + g; mma j takes word j, the
+// lane's x elements 16 t4 + 4 j + {0, 1} (A words 0, 1: rows g, g + 8) and
+// 16 t4 + 4 j + {2, 3} (A words 2, 3), the same k for A and B.
+template <int MT, int NT>
+__device__ __forceinline__ void tc_step(const char* stage, int warp,
+                                        int lane, float (&acc)[MT][NT][4]) {
+  constexpr int BN = 32 * NT;
+  const int g = lane >> 2, t4 = lane & 3;
+  const char* wt = stage + (warp * 8 * NT + g) * kQK + 16 * t4;
+  const char* xt = stage + BN * kQK;
+  uint4 raw[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    raw[nt] = *reinterpret_cast<const uint4*>(wt + 8 * nt * kQK);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {   // mma j = 2 h + jj: x elements [16 t4 +
+    uint32_t b[2][NT][2];         // 8 h, + 8), weight words 2 h, 2 h + 1
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        i8x4_to_bf16(word_of(raw[nt], 2 * h + jj), b[jj][nt][0],
+                     b[jj][nt][1]);
+    const int chunk = (2 * t4 + h) ^ g;   // rows 16 mi + g (+ 8): r & 7 = g
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const uint4 xlo = *reinterpret_cast<const uint4*>(
+          xt + ((16 * mi + g) * 8 + chunk) * 16);
+      const uint4 xhi = *reinterpret_cast<const uint4*>(
+          xt + ((16 * mi + g + 8) * 8 + chunk) * 16);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const uint32_t a[4] = {word_of(xlo, 2 * jj), word_of(xhi, 2 * jj),
+                               word_of(xlo, 2 * jj + 1),
+                               word_of(xhi, 2 * jj + 1)};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          tc::mma_bf16(acc[mi][nt], a, b[jj][nt][0], b[jj][nt][1]);
+      }
+    }
+  }
+}
+
+// out[row, col], out[row, col + 1] = v0, v1 rounded to bf16, masked at N
+// (a 4-byte store where both are live and the row start is aligned).
+__device__ __forceinline__ void store_pair(tc::bf16* __restrict__ out,
+                                           int N, int row, int col, float v0,
+                                           float v1) {
+  tc::bf16* o = out + (long long)row * N + col;
+  if (col + 1 < N && !(N & 1)) {
+    *reinterpret_cast<uint32_t*>(o) = tc::pack_bf16(v0, v1);
+  } else {
+    if (col < N) o[0] = __float2bfloat16(v0);
+    if (col + 1 < N) o[1] = __float2bfloat16(v1);
+  }
+}
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(tc::kThreads, MT == 1 ? 4 : 3)
+int8_matmul_kernel_tc(const tc::bf16* __restrict__ x,
+                      const int8_t* __restrict__ w,
+                      const float* __restrict__ scale,
+                      tc::bf16* __restrict__ out, int M, int N, int K,
+                      long long sn, int splits, float* __restrict__ ws,
+                      int* __restrict__ counters) {
+  constexpr int BM = 16 * MT, BN = 32 * NT;
+  constexpr int kStage = tc_stage_bytes<MT, NT>();
+  extern __shared__ __align__(128) char smem[];
+  __shared__ int is_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  // this split's whole k steps [s0, s0 + nsteps)
+  const int steps = (K + kQK - 1) / kQK;
+  const int per = (steps + splits - 1) / splits;
+  const int s0 = blockIdx.z * per;
+  const int nsteps = min(steps, s0 + per) - s0;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kQStages - 1; ++s) {
+    if (s < nsteps)
+      tc_load_step<MT, NT>(x, w, M, N, K, sn, m0, n0, (s0 + s) * kQK,
+                           smem + s * kStage, tid);
+    tc::cp_async_commit();
+  }
+  for (int i = 0; i < nsteps; ++i) {
+    tc::cp_async_wait<kQStages - 2>();
+    __syncthreads();   // step i landed; step i - 1's stage is consumed
+    const int nxt = i + kQStages - 1;
+    if (nxt < nsteps)
+      tc_load_step<MT, NT>(x, w, M, N, K, sn, m0, n0, (s0 + nxt) * kQK,
+                           smem + (nxt % kQStages) * kStage, tid);
+    tc::cp_async_commit();
+    tc_step<MT, NT>(smem + (i % kQStages) * kStage, warp, lane, acc);
+  }
+  tc::cp_async_wait<0>();
+
+  const int cbase = n0 + warp * 8 * NT + 2 * t4;
+  if (MT == 1 && splits > 1) {   // only the decode tile splits K
+    // fp32 partials to ws[split][row][col]; the last CTA of the tile sums
+    float* part = ws + (long long)blockIdx.z * M * N;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = cbase + 8 * nt;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = m0 + 16 * mi + g + 8 * hr;
+          if (row >= M) continue;
+          float* p = part + (long long)row * N + col;
+          if (col < N) p[0] = acc[mi][nt][2 * hr];
+          if (col + 1 < N) p[1] = acc[mi][nt][2 * hr + 1];
+        }
+    }
+    __threadfence();
+    __syncthreads();
+    int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
+    if (tid == 0) is_last = atomicAdd(counter, 1) == splits - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    // acc = partial 0 + partial 1 + ... in split order; each pass of 8
+    // splits issues its loads before its adds
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float* p = ws + (long long)s * M * N;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = cbase + 8 * nt;
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int row = m0 + 16 * mi + g + 8 * hr;
+            const float* q = p + (long long)row * N + col;
+            const float v0 = row < M && col < N ? __ldcg(q) : 0.f;
+            const float v1 = row < M && col + 1 < N ? __ldcg(q + 1) : 0.f;
+            float* a = acc[mi][nt] + 2 * hr;
+            a[0] = s ? a[0] + v0 : v0;
+            a[1] = s ? a[1] + v1 : v1;
+          }
+      }
+    }
+    if (tid == 0) *counter = 0;   // ready for the next call
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = cbase + 8 * nt;
+    const float sc0 = col < N ? scale[col] : 0.f;
+    const float sc1 = col + 1 < N ? scale[col + 1] : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = m0 + 16 * mi + g + 8 * hr;
+        if (row < M)
+          store_pair(out, N, row, col, acc[mi][nt][2 * hr] * sc0,
+                     acc[mi][nt][2 * hr + 1] * sc1);
+      }
+  }
+}
+
+template <int MT, int NT>
+static int launch_int8_tc(const void* x, const void* w, const float* scale,
+                          void* out, int M, int N, int K, long long sn,
+                          int splits, float* ws, int* counters,
+                          cudaStream_t st) {
+  constexpr int BM = 16 * MT, BN = 32 * NT;
+  constexpr int smem = kQStages * tc_stage_bytes<MT, NT>();
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  if (grid.y > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {   // above 48 KB only by opt-in
+    const cudaError_t err = cudaFuncSetAttribute(
+        int8_matmul_kernel_tc<MT, NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int8_matmul_kernel_tc<MT, NT><<<grid, tc::kThreads, smem, st>>>(
+      (const tc::bf16*)x, (const int8_t*)w, scale, (tc::bf16*)out, M, N, K,
+      sn, splits, ws, counters);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static void launch_int4(const void* x, const void* wp, const float* scale,
                         void* out, int M, int N, int K, int gs, int mode,
@@ -259,15 +544,34 @@ static void launch_int4(const void* x, const void* wp, const float* scale,
 extern "C" int int8_matmul_launch(const void* x, const void* w,
                                   const void* scale, void* out, int M, int N,
                                   int K, long long sn, long long sk,
-                                  int is_bf16, void* stream) {
+                                  int is_bf16, int bm, int bn, int splits,
+                                  void* ws, void* counters, void* stream) {
   using namespace vyomai;
-  if (M <= 0 || N <= 0 || K <= 0 || (M + kMT - 1) / kMT > 65535)
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bm) {   // the tensor-core plan: bf16 x, nk weight, aligned rows
+    const int steps = (K + kQK - 1) / kQK;
+    const int per = splits > 0 ? (steps + splits - 1) / splits : 0;
+    if (!is_bf16 || sk != 1 || K % 16 || sn % 16 || (uintptr_t)w % 16 ||
+        (uintptr_t)x % 16 || splits < 1 || (steps + per - 1) / per != splits ||
+        (splits > 1 && (ws == nullptr || counters == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    const float* s = (const float*)scale;
+    float* wsp = (float*)ws;
+    int* cnt = (int*)counters;
+    if (bm == 16 && bn == 32)
+      return launch_int8_tc<1, 1>(x, w, s, out, M, N, K, sn, splits, wsp,
+                                  cnt, st);
+    if (bm == 64 && bn == 128 && splits == 1)
+      return launch_int8_tc<4, 4>(x, w, s, out, M, N, K, sn, splits, wsp,
+                                  cnt, st);
     return (int)cudaErrorInvalidValue;
+  }
+  if ((M + kMT - 1) / kMT > 65535) return (int)cudaErrorInvalidValue;
   const int vec = sk == 1 && K % kKC == 0 && sn % 16 == 0 &&
                   (uintptr_t)w % 16 == 0;
   const dim3 grid((N + kCols - 1) / kCols, (M + kMT - 1) / kMT);
   const dim3 block(kQmThreads);
-  cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
     int8_matmul_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
         (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale,

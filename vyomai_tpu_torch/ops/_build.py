@@ -28,8 +28,11 @@ _SIGNATURES = {
     # q, pool, scales, block_tables, seq_lens, out, B, H, H_kv, D, BS, MAXB,
     # W, quant, is_bf16, stream
     "paged_decode_launch": [_P] * 6 + [_I] * 9 + [_P],
-    # x, w, scale, out, M, N, K, w strides (n, k), is_bf16, stream
-    "int8_matmul_launch": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I, _P],
+    # x, w, scale, out, M, N, K, w strides (n, k), is_bf16, tensor-core
+    # plan (bm, 0 = CUDA cores; bn; splits), split workspace, counters,
+    # stream
+    "int8_matmul_launch": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I] * 4
+    + [_P] * 3,
     # x, w_p, scale, out, M, N, K, group size, mode, scale_row, is_bf16,
     # stream
     "int4_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],

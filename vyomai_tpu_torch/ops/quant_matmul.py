@@ -32,10 +32,22 @@ Numerics of the kernels and of their plain versions:
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises on what the kernel does not take); there
-is no fallback between the two. ``w8a8_matmul`` has no TPU kernel (JAX runs
-``lax.dot_general`` int8 x int8 -> int32) and calls ``torch._int_mm`` on the
-card.
+is no fallback between the two.
+
+K8 has two kernels, chosen before the launch by a static property of the
+operands (:func:`int8_route`): bf16 x against an ``nk`` weight with
+16-byte aligned rows and K % 16 == 0 (every int8 linear and tied head of
+the serving modules) runs ``int8_matmul_kernel_tc`` on the tensor cores,
+tiled and split along K by :func:`int8_tc_plan`; fp32 x, the ``kn`` layout
+and unaligned operands run the CUDA-core kernel. A split plan sums its
+fp32 partials in a fixed order in a per-device workspace
+(:func:`_split_workspace`), so two calls give the same bits.
+
+``w8a8_matmul`` has no TPU kernel (JAX runs ``lax.dot_general`` int8 x int8
+-> int32) and calls ``torch._int_mm`` on the card.
 """
+
+import functools
 
 import torch
 
@@ -176,6 +188,77 @@ def int4_matmul_ref(x, w_p, scale, kernel: str = "fold",
     return y.reshape(*lead, n_dim).to(x.dtype)
 
 
+# -- K8's route and tensor-core plan ---------------------------------------------
+
+TC_K_STEP = 64   # k per step of the tensor-core kernel's ring
+# (bm, bn) tiles the tensor-core kernel is built for: 16 x 32 (decode, and
+# any M whose 64-row tiles would leave SMs idle) and 64 x 128 (prefill)
+TC_TILES = ((16, 32), (64, 128))
+
+
+def int8_route(x2: torch.Tensor, w_q: torch.Tensor, w_layout: str) -> str:
+    """Which K8 kernel takes ``x2 [M, K] @ w_q``: ``"tc"`` (tensor cores)
+    for bf16 x against an ``nk`` weight whose rows are k-contiguous and
+    16-byte aligned with K % 16 == 0 and x 16-byte aligned, else
+    ``"cuda"`` (the CUDA-core kernel: fp32 x, the ``kn`` layout, or
+    operands the tensor-core tiles cannot read with 16-byte copies)."""
+    k_dim = x2.shape[-1]
+    if x2.dtype != torch.bfloat16 or w_layout != "nk":
+        return "cuda"
+    if (k_dim % 16 or w_q.stride(1) != 1 or w_q.stride(0) % 16
+            or w_q.data_ptr() % 16 or x2.data_ptr() % 16):
+        return "cuda"
+    return "tc"
+
+
+def int8_tc_plan(m: int, k: int, n: int, sm_count: int):
+    """``(bm, bn, splits)`` of the tensor-core K8 at ``[m, k] @ [k, n]``.
+
+    Prefill (m > 16) takes 64 x 128 tiles, so each widened weight fragment
+    feeds four 16-row ``mma`` tiles, where those tiles alone fill the SMs;
+    decode (m <= 16), and an m whose 64-row tiles would not, takes 16 x 32
+    tiles, the most CTAs a weight stream can spread over (at the head,
+    4,748). If the 16 x 32 tiles are still fewer than ``sm_count``, K
+    splits across CTAs in whole 64-deep steps, none empty: the fewest
+    splits that make the grid at least ``sm_count`` CTAs (all of the steps
+    at most). The 64-row tile never splits."""
+    if m > 16 and -(-m // 64) * -(-n // 128) >= sm_count:
+        return 64, 128, 1
+    tiles = -(-m // 16) * -(-n // 32)
+    steps = -(-k // TC_K_STEP)
+    splits = 1
+    if tiles < sm_count:
+        want = -(-sm_count // tiles)
+        while True:
+            splits = -(-steps // -(-steps // min(want, steps)))
+            if splits * tiles >= sm_count or want >= steps:
+                break
+            want += 1
+    return 16, 32, splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per device: (fp32 partials, int32 tile counters), grown on demand; the
+# kernel leaves every counter at 0, and calls on one stream run in order
+_WORKSPACE = {}
+
+
+def _split_workspace(device: torch.device, floats: int, tiles: int):
+    """The split-K workspace of ``device``: at least ``floats`` fp32
+    partials and ``tiles`` counters (zeroed when allocated)."""
+    ws, counters = _WORKSPACE.get(device.index, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _WORKSPACE[device.index] = (ws, counters)
+    return ws, counters
+
+
 # -- wrappers ---------------------------------------------------------------------
 
 def _check(cond: bool, name: str, msg: str):
@@ -196,8 +279,11 @@ def _check_common(name, x2, w, scale, out_n):
 
 def int8_matmul(x, w_q, scale, *, w_layout: str = "kn") -> torch.Tensor:
     """``x [..., K] @ dequant(w_q)``: K8 on the card, the plain version on
-    the CPU. ``w_q`` is read through its (n, k) strides, so the two layouts
-    (and any strided view) take the same kernel."""
+    the CPU. On the card :func:`int8_route` picks the tensor-core kernel
+    (bf16, aligned ``nk``: ``int8_matmul.tc_launches`` counts it) or the
+    CUDA-core one, which reads ``w_q`` through its (n, k) strides, so the
+    two layouts (and any strided view) take it; ``int8_matmul.launches``
+    counts both."""
     if w_layout not in ("kn", "nk"):
         raise ValueError(w_layout)
     if x.device.type == "cpu":
@@ -214,16 +300,30 @@ def int8_matmul(x, w_q, scale, *, w_layout: str = "kn") -> torch.Tensor:
     out = torch.empty((m, n_dim), dtype=x.dtype, device=x.device)
     if m:
         lib = _build.library()
+        tc = int8_route(x2, w_q, w_layout) == "tc"
+        bm = bn = 0
+        splits, ws, counters = 1, 0, 0
+        if tc:
+            bm, bn, splits = int8_tc_plan(m, k_dim, n_dim,
+                                          _sm_count(x.device.index))
+            if splits > 1:
+                tiles = -(-m // bm) * -(-n_dim // bn)
+                wsb, cnt = _split_workspace(x.device, splits * m * n_dim,
+                                            tiles)
+                ws, counters = wsb.data_ptr(), cnt.data_ptr()
         err = lib.int8_matmul_launch(
             x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            m, n_dim, k_dim, sn, sk, int(x.dtype == torch.bfloat16),
+            m, n_dim, k_dim, sn, sk, int(x.dtype == torch.bfloat16), bm, bn,
+            splits, ws, counters,
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(err, "int8_matmul")
         int8_matmul.launches += 1
+        int8_matmul.tc_launches += int(tc)
     return out.reshape(*x.shape[:-1], n_dim)
 
 
 int8_matmul.launches = 0
+int8_matmul.tc_launches = 0
 
 
 def _int4_launch(name, x, w_p, scale, mode: str, scale_row: int):

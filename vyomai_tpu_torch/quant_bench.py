@@ -57,7 +57,8 @@ def _flush() -> torch.Tensor:
 def _weights(k: int, n: int, gs: int, seed: int):
     g = torch.Generator(device="cuda").manual_seed(seed)
     w = torch.randn(k, n, device="cuda", generator=g) * 0.02
-    q, s = qm.quantize_weight(w.t(), contract_axis=1)       # [N, K]
+    q, s = qm.quantize_weight(w.t(), contract_axis=1)
+    q = q.contiguous()   # [N, K], k contiguous, as the modules store it
     p, s4 = qm.quantize_weight_int4(w, group_size=gs)
     return w.to(torch.bfloat16), q, s, p, s4
 
