@@ -11,7 +11,8 @@ and exits non-zero):
    power limit, build the CUDA kernels from ``vyomai_tpu_torch/csrc``, and
    count with ``cuobjdump`` the tensor-core (HMMA) instructions and the
    registers of each bf16 tensor-core kernel (the attention forwards K1,
-   K5/K6, the backwards K2/K3 and K7, and K8's int8 matmul);
+   K5/K6, the backwards K2/K3 and K7, K8's int8 matmul, and the int4
+   matmul of K9 fold and K10's stream / noscale);
 2. K4 paged decode against its plain version at the serving shapes;
 3. K1 flash forward against its plain version at the prefill and training
    shapes and the contract's edges (ragged, causal, fully masked rows);
@@ -44,17 +45,18 @@ and exits non-zero):
 12. encoder numerics: ViT and MLM at 2 layers and fp32, loss and every
     gradient on the card (kernels) against the CPU (plain versions);
 13. K8 (int8, kn and nk; bf16 nk on the tensor cores), K9 (int4 fold and
-    split) and K10 (stream and noscale) against their plain versions at
-    Qwen3-0.6B's decode shapes, the tied head, a prefill shape and ragged
-    M, bf16 and fp32, with K8's route, splits and grid, and the split-K
-    reduction's determinism; then the K10 path
-    (``quant_bench.int4_attribution``);
+    split, kn and nk; bf16 nk fold on the tensor cores) and K10 (stream
+    and noscale; bf16 nk on the tensor cores) against their plain versions
+    at Qwen3-0.6B's decode shapes, the tied head, a prefill shape and
+    ragged M, bf16 and fp32, each with its route and, on the tensor cores,
+    tile, splits and grid; the split-K reduction's determinism for int8
+    and int4; then the K10 path (``quant_bench.int4_attribution``);
 14. K4's int8 and int4 pool variants against their plain versions at
     phase 2's shapes;
 15. end-to-end quantized serving: phase 5's workload and seeded weights
     through ``quantize_model``, int8 weights + int8 pool, then int4
     weights + int4 pool; each serving run (5 and 15) also traces one
-    decode tick for its device time per step;
+    decode tick for its device time per step (and K8's and K9's);
 16. quantized numerics: phase 6's method for int8 + int8 pool, int4 +
     int4 pool and W8A8, quantized on the CPU and copied to the card.
 
@@ -183,8 +185,8 @@ def achieved(flops: float, ms: float, rec: dict) -> str:
 
 def tensor_core_kernels(so: Path) -> dict:
     """HMMA (tensor-core) instructions, registers and stack bytes of each
-    bf16 tensor-core kernel in the built library (the attention kernels and
-    K8's), from ``cuobjdump -sass`` and ``-res-usage``:
+    bf16 tensor-core kernel in the built library (the attention kernels,
+    K8's and K9/K10's), from ``cuobjdump -sass`` and ``-res-usage``:
     {"flash_fwd_kernel_tc<64>": (hmma, regs, stack),
     "int8_matmul_kernel_tc<1,1>": ..., ...}."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
@@ -198,7 +200,8 @@ def tensor_core_kernels(so: Path) -> dict:
     pat = re.compile(r"(flash_fwd_kernel_tc|flash_bwd_dq_kernel_tc|"
                      r"flash_bwd_dkv_kernel_tc|short_fwd_kernel_tc|"
                      r"short_bwd_dq_kernel_tc|short_bwd_dkv_kernel_tc|"
-                     r"int8_matmul_kernel_tc)I((?:Li\d+E)+)")
+                     r"int8_matmul_kernel_tc|int4_matmul_kernel_tc)"
+                     r"I((?:Li\d+E)+)")
 
     def kernel_name(line):
         m = pat.search(line)
@@ -235,7 +238,10 @@ TC_KERNELS = ("flash_fwd_kernel_tc<128>", "flash_fwd_kernel_tc<64>",
               "short_bwd_dq_kernel_tc<32>", "short_bwd_dq_kernel_tc<64>",
               "short_bwd_dkv_kernel_tc<128>", "short_bwd_dkv_kernel_tc<32>",
               "short_bwd_dkv_kernel_tc<64>", "int8_matmul_kernel_tc<1,1>",
-              "int8_matmul_kernel_tc<4,4>")
+              "int8_matmul_kernel_tc<4,4>",
+              # <mode, MT, NT>: fold 0, stream 2, noscale 3
+              "int4_matmul_kernel_tc<0,1,1>", "int4_matmul_kernel_tc<0,4,4>",
+              "int4_matmul_kernel_tc<2,1,1>", "int4_matmul_kernel_tc<3,1,1>")
 
 
 def live_mask(torch, bias, lq, lk, causal, q_offset):
@@ -657,8 +663,8 @@ def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
     ``max_batch`` lanes at position ``ctx``, over blocks of the engine's
     pool: (device kernel ms per step from a ``torch.profiler`` trace of the
     tick, wall ms per step of the same tick unprofiled, the three kernels
-    with the most device time, K8's device ms per step). The device
-    figures are None when the profiler saw no device time."""
+    with the most device time, K8's and K9's device ms per step). The
+    device figures are None when the profiler saw no device time."""
     b, bs, maxb = eng.max_batch, eng.block_size, eng.max_blocks_per_seq
     need = -(-(ctx + steps) // bs)
     dev = eng.device
@@ -695,9 +701,11 @@ def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
     total = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
     k8 = sum(v for k, v in per_kernel.items() if "int8_matmul_kernel" in k)
+    k9 = sum(v for k, v in per_kernel.items() if "int4_matmul_kernel" in k)
     return ((total / steps) if total > 0 else None, wall,
             [(k[:60], round(v / steps, 4)) for k, v in top],
-            (k8 / steps) if total > 0 else None)
+            (k8 / steps) if total > 0 else None,
+            (k9 / steps) if total > 0 else None)
 
 
 def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
@@ -754,11 +762,11 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
         same = sum(a == b for i in outs for a, b in zip(outs[i],
                                                         reference[i]))
         agree = f", greedy tokens agreeing with bf16 {same / tokens:.4f}"
-    dev_ms, wall_ms, top, k8_ms = decode_tick_ms(torch, pm, eng)
+    dev_ms, wall_ms, top, k8_ms, k9_ms = decode_tick_ms(torch, pm, eng)
     dev_txt = "not measured" if dev_ms is None else \
         f"{dev_ms:.4f} ms (idle {1 - dev_ms / wall_ms:.3f})"
     if quant is not None and k8_ms is not None:
-        dev_txt += f", K8 {k8_ms:.4f} ms"
+        dev_txt += f", K8 {k8_ms:.4f} ms, K9 {k9_ms:.4f} ms"
     phase(f"serving Qwen3-0.6B width {label}: {tokens} tokens in "
           f"{wall:.3f} s = {tokens / wall:.1f} tok/s, mean TTFT "
           f"{m['ttft_mean_s']:.4f} s, prefix hits {m['radix_hits']} "
@@ -816,9 +824,13 @@ def phase_numerics(torch, np, tt, pm, label="fp32", quant=None,
         logits[dev] = [s.float().cpu() for s in steps]
         if dev == "cpu":
             cpu_tokens = [int(s.argmax(-1)[0]) for s in steps[:-1]]
-    launches = kernel_launches(kernels)   # fp32: no tensor-core K8
+    launches = kernel_launches(kernels)
     check(all(launches[fn.__name__] > 0 for fn in kernels),
           f"numerics {label}: a kernel never ran on the card: {launches}")
+    check(all(n == 0 for name, n in launches.items()
+              if name.endswith("_kernel_tc")),
+          f"numerics {label}: fp32 took a bf16 tensor-core kernel: "
+          f"{launches}")
     errs = [float((a - b).abs().max())
             for a, b in zip(logits["cpu"], logits["cuda"])]
     flips = ""
@@ -1281,15 +1293,17 @@ QWEN3_HEAD = (1024, 151936)
 def phase_quant_matmul(torch, qm, qb, flush, card):
     """K8 (kn and nk) at decode M=16 over every Qwen3-0.6B linear shape and
     the tied head, at prefill M=2,048 for 1024->3072, and at ragged M (1,
-    7, 17, 100) and N (1,000); K9 fold and split at the linear shapes
-    (gs=128); K10 stream and noscale at M=8, K=N=2,048; bf16 and fp32,
-    each against its plain version, with the dense bf16 ``torch.matmul``
-    (and ``torch._weight_int8pack_mm`` where it runs) as library times.
-    Each K8 case prints its route (``int8_route``: bf16 ``nk`` on the
-    tensor cores) and, on the tensor cores, its tile, splits and grid. Two
-    calls at a split-K shape must give the same bits and leave the tile
-    counters at 0. Then the K10 path: ``quant_bench``'s int4 attribution,
-    counts zeroed before and read after."""
+    7, 17, 100) and N (1,000); K9 fold and split (kn and nk, gs=128) at the
+    linear shapes, fold at the prefill shape and the ragged M; K10 stream
+    and noscale at M=8, K=N=2,048; bf16 and fp32, each against its plain
+    version, with the dense bf16 ``torch.matmul`` (and
+    ``torch._weight_int8pack_mm`` where it runs) as library times. Each
+    case prints its route (``int8_route`` / ``int4_route``: bf16 ``nk``
+    on the tensor cores, K9's split mode on the CUDA cores) and, on the
+    tensor cores, its tile, splits and grid. Five calls at a split-K shape
+    of K8 and of K9 must give the same bits and leave the tile counters at
+    0. Then the K10 path: ``quant_bench``'s int4 attribution, counts
+    zeroed before and read after."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1303,12 +1317,26 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
     cases += [("K8", "ragged", m, 1024, 1000, bf, lay)
               for m in (1, 7, 17, 100) for lay in ("kn", "nk")]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # K9 / K10 variants: (mode, layout)
     for k, n in QWEN3_LINEARS:
-        for dt in (bf, f32):
-            cases += [("K9", "decode", 16, k, n, dt, mode)
-                      for mode in ("fold", "split")]
-    cases += [("K10", "attribution", 8, 2048, 2048, dt, mode)
-              for dt in (bf, f32) for mode in ("stream", "noscale")]
+        cases += [("K9", "decode", 16, k, n, dt, var) for dt, var in (
+            (bf, ("fold", "nk")), (bf, ("split", "nk")), (bf, ("fold", "kn")),
+            (f32, ("fold", "nk")), (f32, ("split", "nk")))]
+    cases += [("K9", "prefill", 2048, 1024, 3072, dt, var) for dt, var in (
+        (bf, ("fold", "nk")), (bf, ("fold", "kn")))]
+    cases += [("K9", "ragged", m, 1024, 1000, bf, ("fold", "nk"))
+              for m in (1, 7, 17, 100)]
+    cases += [("K10", "attribution", 8, 2048, 2048, dt, (mode, lay))
+              for dt, lay in ((bf, "nk"), (f32, "nk"), (bf, "kn"))
+              for mode in ("stream", "noscale")]
+    # the cases whose records the kernels' JSON line carries
+    main_case = {
+        "K8": ("K8", "decode", bf, "nk", QWEN3_HEAD),
+        "K8-cuda": ("K8", "decode", bf, "kn", QWEN3_HEAD),
+        "K9": ("K9", "decode", bf, ("fold", "nk"), (1024, 3072)),
+        # the CUDA-core K9 as phase 16's fp32 numerics run it
+        "K9-cuda": ("K9", "decode", f32, ("fold", "nk"), (1024, 3072)),
+        "K10": ("K10", "attribution", bf, ("stream", "nk"), (2048, 2048))}
     weights, main, lib_seen = {}, {}, {}
     for kern, label, m, k, n, dt, var in cases:
         if (k, n) not in weights:
@@ -1316,40 +1344,46 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
             w = torch.randn(k, n, device=dev, generator=g) * 0.02
             q, s = qm.quantize_weight(w)
             p, s4 = qm.quantize_weight_int4(w, group_size=128)
-            weights[(k, n)] = (q, s, p, s4)
+            weights[(k, n)] = (q, s, {"kn": p, "nk": p.t().contiguous()},
+                               s4)
             del w
-        q, s, p, s4 = weights[(k, n)]
+        q, s, packed, s4 = weights[(k, n)]
         x = torch.randn(m, k, device=dev, generator=g).to(dt)
-        route = ""
         if kern == "K8":
             wq = q if var == "kn" else q.t().contiguous()
             fn = lambda: qm.int8_matmul(x, wq, s, w_layout=var)  # noqa
             ref_fn = lambda: qm.int8_matmul_ref(x, wq, s, var)  # noqa
             wbytes = nbytes(wq, s)
-            route = qm.int8_route(x, wq, var)
-            if route == "tc":
-                bm, bn, splits = qm.int8_tc_plan(m, k, n, sms)
-                grid = -(-m // bm) * -(-n // bn) * splits
-                route += (f" tile {bm}x{bn} splits {splits} grid {grid} "
-                          f"CTAs")
-            route = f" route {route},"
-        elif kern == "K9":
-            fn = lambda: qm.int4_matmul(x, p, s4, kernel=var)  # noqa
-            ref_fn = lambda: qm.int4_matmul_ref(x, p, s4, var)  # noqa
-            wbytes = nbytes(p, s4)
+            route, wide = qm.int8_route(x, wq, var), True
+            name = var
         else:
-            row = qm.k10_scale_row(k, 128)
-            fn = lambda: qm.int4_attribution(  # noqa: E731
-                x, p, s4, mode=var, scale_row=row)
-            ref_fn = lambda: qm.int4_matmul_ref(x, p, s4, var, row)  # noqa
-            wbytes = nbytes(p) + n * 4
+            mode, lay = var
+            p = packed[lay]
+            row = 0 if kern == "K9" else qm.k10_scale_row(k, 128)
+            if kern == "K9":
+                fn = lambda: qm.int4_matmul(  # noqa: E731
+                    x, p, s4, kernel=mode, w_layout=lay)
+                wbytes = nbytes(p, s4)
+            else:
+                fn = lambda: qm.int4_attribution(  # noqa: E731
+                    x, p, s4, mode=mode, scale_row=row, w_layout=lay)
+                wbytes = nbytes(p) + n * 4
+            ref_fn = lambda: qm.int4_matmul_ref(  # noqa: E731
+                x, p, s4, mode, row, lay)
+            route, wide = qm.int4_route(x, p, lay, mode, 128), mode == "fold"
+            name = f"{mode} {lay}"
+        if route == "tc":
+            bm, bn, splits = qm.int8_tc_plan(m, k, n, sms, wide=wide)
+            grid = -(-m // bm) * -(-n // bn) * splits
+            route += f" tile {bm}x{bn} splits {splits} grid {grid} CTAs"
+        route = f" route {route},"
         out = fn()
         torch.cuda.synchronize()
         ref = ref_fn()
         err = float((out.float() - ref.float()).abs().max())
         atol = qm_atol(ref, dt)
         check(bool(torch.isfinite(out).all()) and err <= atol,
-              f"{kern} {var} {label} M={m} K={k} N={n} {dt}: max err {err} "
+              f"{kern} {name} {label} M={m} K={k} N={n} {dt}: max err {err} "
               f"> {atol}")
         ms = cuda_ms(fn, flush)
         plain_ms = cuda_ms(ref_fn, flush)
@@ -1374,45 +1408,48 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
                 lib_seen[key] = (lib, pack_txt)
                 del w_bf, qt
             rec["library_ms"] = lib_seen[key][0]
-            extra = (f", bf16 matmul {lib_seen[key][0]:.4f} ms, "
+            extra = (f", bf16 matmul {lib_seen[key][0]:.4f} ms "
+                     f"(ratio {ms / lib_seen[key][0]:.3f}), "
                      f"_weight_int8pack_mm {lib_seen[key][1]}")
-        phase(f"{kern} {var} {label} M={m} K={k} N={n} {str(dt)[6:]}:"
+        phase(f"{kern} {name} {label} M={m} K={k} N={n} {str(dt)[6:]}:"
               f"{route} max_abs_err={err:.3g} (atol {atol:.3g}) kernel "
               f"{ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}){extra} [{card}]")
-        if dt == bf and (
-                (kern == "K8" and (k, n) == QWEN3_HEAD and var == "nk")
-                or (kern == "K9" and (k, n) == (1024, 3072)
-                    and var == "fold")
-                or (kern == "K10" and var == "stream")):
-            main[kern] = rec
-        if (kern, label, dt, var) == ("K8", "decode", bf, "kn") and \
-                (k, n) == QWEN3_HEAD:
-            main["K8-cuda"] = rec   # the CUDA-core kernel at the head
+        for rec_name, want in main_case.items():
+            if (kern, label, dt, var, (k, n)) == want:
+                main[rec_name] = rec
         del x, out, ref
     weights.clear()
     # determinism of the split-K reduction: same bits, counters back at 0
-    m, k, n = 16, 3072, 1024
-    x = torch.randn(m, k, device=dev, generator=g).to(bf)
-    q, s = qm.quantize_weight(torch.randn(n, k, device=dev, generator=g),
-                              contract_axis=1)
-    splits = qm.int8_tc_plan(m, k, n, sms)[2]
-    outs = [qm.int8_matmul(x, q, s, w_layout="nk") for _ in range(5)]
-    torch.cuda.synchronize()
-    same = all(torch.equal(o, outs[0]) for o in outs[1:])
-    counters = int(qm._WORKSPACE[0][1].abs().sum())
-    check(splits > 1 and same and counters == 0,
-          f"K8 split-K M={m} K={k} N={n}: splits {splits}, identical bits "
-          f"{same}, counters left {counters}")
-    phase(f"K8 split-K determinism M={m} K={k} N={n} splits {splits}: 5 "
-          f"calls bit-identical, tile counters back at 0")
-    del x, q, s, outs
+    stream = torch.cuda.current_stream().cuda_stream
+    for kern, m, k, n in (("K8", 16, 3072, 1024), ("K9", 16, 1024, 3072)):
+        x = torch.randn(m, k, device=dev, generator=g).to(bf)
+        w = torch.randn(n, k, device=dev, generator=g)
+        if kern == "K8":
+            q, s = qm.quantize_weight(w, contract_axis=1)
+            call = lambda: qm.int8_matmul(x, q, s, w_layout="nk")  # noqa
+        else:
+            p, s = qm.quantize_weight_int4(w.t(), group_size=128)
+            p = p.t().contiguous()
+            call = lambda: qm.int4_matmul(x, p, s, w_layout="nk")  # noqa
+        splits = qm.int8_tc_plan(m, k, n, sms)[2]
+        outs = [call() for _ in range(5)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, outs[0]) for o in outs[1:])
+        counters = int(qm._WORKSPACE[(0, stream)][1].abs().sum())
+        check(splits > 1 and same and counters == 0,
+              f"{kern} split-K M={m} K={k} N={n}: splits {splits}, "
+              f"identical bits {same}, counters left {counters}")
+        phase(f"{kern} split-K determinism M={m} K={k} N={n} splits "
+              f"{splits}: 5 calls bit-identical, tile counters back at 0")
+        del x, w, outs
     torch.cuda.empty_cache()
-    qm.int4_attribution.launches = 0
+    zero_launches((qm.int4_attribution,))
     att = qb.int4_attribution()
-    launches = {"int4_attribution": qm.int4_attribution.launches}
-    check(launches["int4_attribution"] > 0, "K10 never ran on its path")
+    launches = kernel_launches((qm.int4_attribution,))
+    check(launches["int4_attribution_kernel_tc"] > 0,
+          f"K10 never ran on the tensor cores on its path: {launches}")
     phase(f"K10 path quant_bench.int4_attribution: {json.dumps(att)}; "
           f"launches {launches} [{card}]")
     return main, launches
@@ -1590,10 +1627,11 @@ def main():
     # one lies at a rounding boundary its int4 entry lands a whole step
     # (amax/7 of its head) apart: a wider bound than int8's (the count of
     # such pool bytes is printed)
-    phase_numerics(torch, np, tt, pm, "fp32 int4 weights + int4 pool",
-                   quant=dict(bits=4, group_size=128), pool_dtype="int4",
-                   tol=2e-2, kernels=(qm.int8_matmul, qm.int4_matmul,
-                                      pdm.paged_decode_int4))
+    n4 = phase_numerics(torch, np, tt, pm, "fp32 int4 weights + int4 pool",
+                        quant=dict(bits=4, group_size=128),
+                        pool_dtype="int4", tol=2e-2,
+                        kernels=(qm.int8_matmul, qm.int4_matmul,
+                                 pdm.paged_decode_int4))
     # W8A8 re-quantizes every linear's input per token on each device, so
     # fp32 rounding differences flip activation codes at all 14 linears:
     # the logits bound is wide, and each linear is also held exact on
@@ -1645,14 +1683,20 @@ def main():
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "vyomai_tpu/ops/quant_matmul.py:107",
          "launches": n8["int8_matmul"], **qmm["K8-cuda"]},
+        {"name": "int4_matmul_kernel_tc", "route": "cuda",
+         "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "vyomai_tpu/ops/quant_matmul.py:276",
+         "launches": q4["launches"]["int4_matmul_kernel_tc"], **qmm["K9"]},
+        # fp32, kn and split stay on the CUDA cores: phase 16's fp32 path
         {"name": "int4_matmul", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "vyomai_tpu/ops/quant_matmul.py:276",
-         "launches": q4["launches"]["int4_matmul"], **qmm["K9"]},
-        {"name": "int4_attribution", "route": "cuda",
+         "launches": n4["int4_matmul"], **qmm["K9-cuda"]},
+        {"name": "int4_attribution_kernel_tc", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "benchmarks/int4_dense_bench.py:62",
-         "launches": k10_path["int4_attribution"], **qmm["K10"]},
+         "launches": k10_path["int4_attribution_kernel_tc"],
+         **qmm["K10"]},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
          "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",

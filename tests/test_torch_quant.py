@@ -136,9 +136,12 @@ def test_int8_matmul_matches_pallas_and_xla(jx, layout, m):
 
 
 @pytest.mark.parametrize("kernel", ["fold", "split"])
-@pytest.mark.parametrize("gs", [64, 128])
+@pytest.mark.parametrize("gs", [32, 64, 128])
 @pytest.mark.parametrize("m", [1, 5])
 def test_int4_matmul_matches_pallas(jx, kernel, gs, m):
+    """Both layouts of the packed weight: JAX's ``[K/2, N]`` and the
+    modules' k-contiguous ``[N, K/2]`` give the same bits, and both match
+    the Pallas kernel."""
     rng = _rng(gs + m)
     x = rng.standard_normal((m, 256)).astype(np.float32)
     w = (rng.standard_normal((256, 384)) * 0.05).astype(np.float32)
@@ -148,8 +151,11 @@ def test_int4_matmul_matches_pallas(jx, kernel, gs, m):
         ref = _pallas(jx, jx.qm.int4_matmul, jx.jnp.asarray(x), p, s)
     finally:
         jx.qm.set_int4_kernel("fold")
-    got = tqm.int4_matmul(_t(x), _t(np.asarray(p)), _t(np.asarray(s)),
-                          kernel=kernel).numpy()
+    tp, ts = _t(np.asarray(p)), _t(np.asarray(s))
+    got = tqm.int4_matmul(_t(x), tp, ts, kernel=kernel).numpy()
+    got_nk = tqm.int4_matmul(_t(x), tp.t().contiguous(), ts, kernel=kernel,
+                             w_layout="nk").numpy()
+    np.testing.assert_array_equal(got_nk, got)
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
 
 
@@ -182,12 +188,14 @@ def test_w8a8_matmul_matches_jax(jx, layout):
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("gs", [32, 128])
 @pytest.mark.parametrize("mode", ["stream", "noscale"])
-def test_k10_plain_modes_match_the_kernel_bodies(jx, mode):
+def test_k10_plain_modes_match_the_kernel_bodies(jx, mode, gs):
     """``_stream_kernel`` dots the packed bytes with x's even and odd
     columns; ``_noscale_kernel`` the unpacked nibbles; both then scale by
-    the last K block's first group row."""
-    m, k, n, gs = 8, 2048, 256, 128
+    the last K block's first group row. The ``nk`` layout gives the same
+    bits as the ``kn`` one."""
+    m, k, n = 8, 2048, 256
     rng = _rng(5)
     x = rng.standard_normal((m, k)).astype(np.float32)
     w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
@@ -204,6 +212,10 @@ def test_k10_plain_modes_match_the_kernel_bodies(jx, mode):
     ref = acc * s[row]
     got = tqm.int4_attribution(_t(x), _t(p8), _t(s), mode=mode,
                                scale_row=tqm.k10_scale_row(k, gs))
+    got_nk = tqm.int4_attribution(_t(x), _t(p8.T), _t(s), mode=mode,
+                                  scale_row=tqm.k10_scale_row(k, gs),
+                                  w_layout="nk")
+    np.testing.assert_array_equal(got_nk.numpy(), got.numpy())
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
 
@@ -212,15 +224,19 @@ def test_wrappers_count_no_cpu_launch():
     x = torch.randn(3, 64)
     q, s = tqm.quantize_weight(torch.randn(64, 32))
     p, s4 = tqm.quantize_weight_int4(torch.randn(64, 32), group_size=32)
-    before = (tqm.int8_matmul.launches, tqm.int8_matmul.tc_launches,
-              tqm.int4_matmul.launches, tqm.int4_attribution.launches)
+    counts = (lambda: (tqm.int8_matmul.launches, tqm.int8_matmul.tc_launches,
+                       tqm.int4_matmul.launches, tqm.int4_matmul.tc_launches,
+                       tqm.int4_attribution.launches,
+                       tqm.int4_attribution.tc_launches))
+    before = counts()
     tqm.int8_matmul(x, q, s)
     tqm.int8_matmul(x.bfloat16(), q.t().contiguous(), s, w_layout="nk")
     tqm.int4_matmul(x, p, s4)
+    tqm.int4_matmul(x.bfloat16(), p.t().contiguous(), s4, w_layout="nk")
     tqm.int4_attribution(x, p, s4, mode="stream", scale_row=0)
-    assert (tqm.int8_matmul.launches, tqm.int8_matmul.tc_launches,
-            tqm.int4_matmul.launches,
-            tqm.int4_attribution.launches) == before
+    tqm.int4_attribution(x.bfloat16(), p.t().contiguous(), s4,
+                         mode="noscale", scale_row=0, w_layout="nk")
+    assert counts() == before
 
 
 # -- quantize_model against quantize_params --------------------------------------
@@ -289,6 +305,40 @@ def test_indivisible_k_stays_int8(jx):
     assert isinstance(mod.proj, tq.Int8Linear) and "kernel_q" in want
     np.testing.assert_array_equal(mod.proj.weight_q.numpy().T,
                                   np.asarray(want["kernel_q"]))
+
+
+def test_int4_linear_stores_the_transposed_kernel_q4(jx):
+    """``Int4Linear.weight_q4`` is JAX's ``kernel_q4`` transposed to
+    ``[out, in/2]``, row-major (k contiguous), with the same group size,
+    reconstruction and outputs; ``params_from_jax`` builds the same
+    row-major buffers (and int8 ones) from a ``quantize_params`` tree."""
+    from vyomai_tpu_torch.interop import params_from_jax
+    params, model = _float_pair(jx)
+    want = jx.vt.quantize_params(params, bits=4, group_size=32)
+    tq.quantize_model(model, bits=4, group_size=32)
+    lin = model.layers[1].mlp.down_proj
+    kq4 = np.asarray(want["layers"]["mlp"]["down_proj"]["kernel_q4"][1])
+    scale = np.asarray(want["layers"]["mlp"]["down_proj"]["scale"][1])
+    assert isinstance(lin, tq.Int4Linear) and lin.weight_q4.is_contiguous()
+    np.testing.assert_array_equal(lin.weight_q4.numpy(), kq4.T)
+    assert lin.group_size == 32
+    np.testing.assert_array_equal(
+        lin.dequantized().numpy(),
+        tqm.dequantize_int4(_t(kq4), _t(scale)).t().numpy())
+    x = torch.from_numpy(_rng(3).standard_normal((5, kq4.shape[0] * 2))
+                         .astype(np.float32))
+    np.testing.assert_array_equal(
+        lin(x).numpy(), tqm.int4_matmul(x, _t(kq4), _t(scale)).numpy())
+    tcfg = model.config
+    tree = jx.jax.tree_util.tree_map(np.asarray, want)
+    bridged = params_from_jax(tree, tcfg, device="cpu")
+    for a, b in zip(bridged.buffers(), model.buffers()):
+        assert a.is_contiguous()
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    tree8 = jx.jax.tree_util.tree_map(
+        np.asarray, jx.vt.quantize_params(params, bits=8))
+    q_proj = params_from_jax(tree8, tcfg, device="cpu").layers[0].self_attn
+    assert q_proj.q_proj.weight_q.is_contiguous()
 
 
 def test_w8a8_untied_head_stays_weight_only(jx):
@@ -453,27 +503,140 @@ def test_int8_split_k_is_deterministic_on_card(cuda, m, k, n):
     outs = [tqm.int8_matmul(x, q, s, w_layout="nk") for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
-    counters = tqm._WORKSPACE[index][1]
+    stream = torch.cuda.current_stream().cuda_stream
+    counters = tqm._WORKSPACE[(index, stream)][1]
     assert int(counters.abs().sum()) == 0
+
+
+def _int4_call(x, p, s, mode, layout, gs):
+    """(kernel output, plain output) of K9/K10 ``mode``."""
+    k = x.shape[-1]
+    if mode in ("fold", "split"):
+        return (tqm.int4_matmul(x, p, s, kernel=mode, w_layout=layout),
+                tqm.int4_matmul_ref(x, p, s, mode, 0, layout))
+    row = tqm.k10_scale_row(k, gs) if tqm.int4_block_rows(gs, k // 2) else 0
+    return (tqm.int4_attribution(x, p, s, mode=mode, scale_row=row,
+                                 w_layout=layout),
+            tqm.int4_matmul_ref(x, p, s, mode, row, layout))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["fold", "split", "stream", "noscale"])
-@pytest.mark.parametrize("gs", [32, 128])
-def test_int4_kernel_matches_plain_on_card(cuda, dtype, mode, gs):
-    g = torch.Generator(device=cuda).manual_seed(gs)
-    m, k, n = 21, 1024, 200
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("m,k,n,gs", [
+    (21, 1024, 200, 32), (21, 1024, 200, 128),
+    # ragged M and N on the decode and prefill tiles
+    (1, 1024, 1000, 128), (7, 1024, 1000, 128), (16, 1024, 1000, 128),
+    (17, 1024, 1000, 128), (100, 1024, 1000, 128), (2048, 1024, 3072, 128),
+    # split-K (1024 -> 3072 at decode: 2 splits), and K % 64 != 0 (a
+    # last step of 16 k: half of an int4 chunk of 32 k)
+    (16, 1024, 3072, 128), (5, 1040, 300, 16)])
+def test_int4_kernel_matches_plain_on_card(cuda, dtype, mode, layout, m, k,
+                                           n, gs):
+    """Each mode and layout against its plain version; bf16 ``nk`` fold,
+    stream and noscale take the tensor cores (``tc_launches`` moves by
+    exactly one), everything else the CUDA cores."""
+    g = torch.Generator(device=cuda).manual_seed(gs + m)
     x = torch.randn(m, k, device=cuda, generator=g).to(dtype)
     p, s = tqm.quantize_weight_int4(
         torch.randn(k, n, device=cuda, generator=g), group_size=gs)
-    if mode in ("fold", "split"):
-        out = tqm.int4_matmul(x, p, s, kernel=mode)
-        ref = tqm.int4_matmul_ref(x, p, s, mode)
-    else:
-        row = tqm.k10_scale_row(k, gs)
-        out = tqm.int4_attribution(x, p, s, mode=mode, scale_row=row)
-        ref = tqm.int4_matmul_ref(x, p, s, mode, row)
+    if layout == "nk":   # rows padded to 16 bytes (K = 1040: 520 -> 528)
+        base = torch.zeros(n, -(-k // 32) * 16, dtype=torch.int8,
+                           device=cuda)
+        base[:, :k // 2] = p.t()
+        p = base[:, :k // 2]
+    fn = tqm.int4_matmul if mode in ("fold", "split") else \
+        tqm.int4_attribution
+    before = (fn.launches, fn.tc_launches)
+    out, ref = _int4_call(x, p, s, mode, layout, gs)
     torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16 and layout == "nk" and mode != "split")
+    assert (fn.launches, fn.tc_launches) == (before[0] + 1, before[1] + tc)
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=_atol(ref, dtype), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fold", "stream", "noscale"])
+def test_int4_unaligned_nk_takes_the_cuda_cores_on_card(cuda, mode):
+    """An ``nk`` packed weight view whose rows are not 16-byte aligned goes
+    to the CUDA-core kernel (the documented route) and still matches."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    m, k, n, gs = 16, 1024, 500, 128
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    p, s = tqm.quantize_weight_int4(
+        torch.randn(k, n, device=cuda, generator=g), group_size=gs)
+    base = torch.zeros(n, k // 2 + 8, dtype=torch.int8, device=cuda)
+    base[:, :k // 2] = p.t()
+    w = base[:, :k // 2]
+    assert tqm.int4_route(x, w, "nk", mode, gs) == "cuda"
+    fn = tqm.int4_matmul if mode == "fold" else tqm.int4_attribution
+    before = fn.tc_launches
+    out, ref = _int4_call(x, w, s, mode, "nk", gs)
+    torch.cuda.synchronize()
+    assert fn.tc_launches == before
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=_atol(ref, torch.bfloat16), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,m,k,n", [("fold", 16, 1024, 3072),
+                                        ("fold", 1, 3072, 1024),
+                                        ("stream", 8, 2048, 2048),
+                                        ("noscale", 8, 2048, 2048)])
+def test_int4_split_k_is_deterministic_on_card(cuda, mode, m, k, n):
+    """A split-K int4 plan gives the same bits on every call and leaves
+    every tile counter at 0."""
+    index = torch.cuda.current_device()
+    splits = tqm.int8_tc_plan(m, k, n, tqm._sm_count(index),
+                              wide=mode == "fold")[2]
+    assert splits > 1
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    p, s = tqm.quantize_weight_int4(
+        torch.randn(k, n, device=cuda, generator=g), group_size=128)
+    p = p.t().contiguous()
+    outs = [_int4_call(x, p, s, mode, "nk", 128)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert int(tqm._WORKSPACE[(index, stream)][1].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_split_k_graph_replays_after_a_larger_call_on_card(cuda):
+    """A CUDA graph captured over a split-K K9 call replays correctly after
+    a larger split-K call on the capture stream has grown that stream's
+    workspace: the captured buffers stay alive."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    m, k, n = 16, 1024, 3072
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    p, s = tqm.quantize_weight_int4(
+        torch.randn(k, n, device=cuda, generator=g), group_size=128)
+    p = p.t().contiguous()
+    want = tqm.int4_matmul(x, p, s, w_layout="nk")
+    big_x = torch.randn(16, 3072, device=cuda, generator=g).bfloat16()
+    big_p, big_s = tqm.quantize_weight_int4(
+        torch.randn(3072, 4096, device=cuda, generator=g), group_size=128)
+    big_p = big_p.t().contiguous()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):   # warm the capture stream's workspace
+        tqm.int4_matmul(x, p, s, w_layout="nk")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = tqm.int4_matmul(x, p, s, w_layout="nk")
+    key = (torch.cuda.current_device(), stream.cuda_stream)
+    held = tqm._WORKSPACE[key][0].data_ptr()
+    with torch.cuda.stream(stream):   # grows the workspace the graph holds
+        big = tqm.int4_matmul(big_x, big_p, big_s, w_layout="nk")
+    torch.cuda.synchronize()
+    assert tqm._WORKSPACE[key][0].data_ptr() != held
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    big_ref = tqm.int4_matmul_ref(big_x, big_p, big_s, "fold", 0, "nk")
+    torch.testing.assert_close(big.float(), big_ref.float(),
+                               atol=_atol(big_ref, torch.bfloat16), rtol=0)

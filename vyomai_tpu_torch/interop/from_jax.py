@@ -16,8 +16,8 @@ on the card unless ``device`` names another.
 (``kernel_q [L, K, N]`` / ``scale [L, N]`` with an optional ``act_q``
 marker, ``kernel_q4 [L, K/2, N]`` / ``scale [L, K/gs, N]``, and
 ``embed_tokens.{weight_q, scale, out_dtype}``): it moves the bytes into the
-``quant`` modules, transposing the int8 kernels into ``[out, in]``, and
-never re-quantizes. ``tree_from_torch`` gives such a tree back.
+``quant`` modules, transposing the int8 kernels into ``[out, in]`` and the
+packed int4 kernels into ``[out, in/2]``, and never re-quantizes. ``tree_from_torch`` gives such a tree back.
 """
 
 import numpy as np
@@ -50,7 +50,9 @@ def _copy(dst: torch.Tensor, src: np.ndarray):
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x)).to(device)   # own, writable copy
+    # own, writable, row-major copy: a transposed kernel comes out
+    # contiguous, as the tensor-core matmuls' routes require
+    return torch.from_numpy(np.array(x, order="C")).to(device)
 
 
 def _quantized_linear(node: dict, layer, device):
@@ -63,7 +65,7 @@ def _quantized_linear(node: dict, layer, device):
                           _tensor(pick(node["scale"]), device),
                           act_q="act_q" in node)
     if "kernel_q4" in node:
-        return Int4Linear(_tensor(pick(node["kernel_q4"]), device),
+        return Int4Linear(_tensor(pick(node["kernel_q4"]).T, device),
                           _tensor(pick(node["scale"]), device))
     return None
 
@@ -197,7 +199,7 @@ def vit_params_from_jax(tree, config, pos_embedding_type="absolute", *,
 # quantized module buffer -> (JAX leaf name, transposed?)
 _QUANT_LEAVES = {
     Int8Linear: {"weight_q": ("kernel_q", True), "scale": ("scale", False)},
-    Int4Linear: {"weight_q4": ("kernel_q4", False),
+    Int4Linear: {"weight_q4": ("kernel_q4", True),
                  "scale": ("scale", False)},
     Int8Embedding: {"weight_q": ("weight_q", False),
                     "scale": ("scale", False)},

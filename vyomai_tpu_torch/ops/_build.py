@@ -34,8 +34,10 @@ _SIGNATURES = {
     "int8_matmul_launch": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I] * 4
     + [_P] * 3,
     # x, w_p, scale, out, M, N, K, group size, mode, scale_row, is_bf16,
-    # stream
-    "int4_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
+    # w_p strides (n, k), tensor-core plan (bm, bn, splits), split
+    # workspace, counters, stream
+    "int4_matmul_launch": [_P] * 4 + [_I] * 7 + [_LL] * 2 + [_I] * 3
+    + [_P] * 3,
     # q, k, v, bias, out, lse, B, H, H_kv, Lq, Lk, D, bias strides (b, h,
     # q; 64-bit), causal, q_offset, is_bf16, stream
     "flash_fwd_launch": [_P] * 6 + [_I] * 6 + [_LL] * 3 + [_I] * 3 + [_P],

@@ -10,8 +10,10 @@ Replaces the TPU kernels ``vyomai_tpu/ops/quant_matmul.py`` ``_kernel_kn`` /
 Layouts at these functions are the JAX package's: ``int8_matmul`` takes
 ``w_q [K, N]`` (``w_layout="kn"``) or ``[N, K]`` (``"nk"``, the tied head and
 the port's ``nn.Linear``-shaped modules) with ``scale [N]``; ``int4_matmul``
-takes ``w_p [K/2, N]`` (row 2i in the low nibble, 2i+1 in the high one) with
-group scales ``[K/gs, N]``.
+takes ``w_p [K/2, N]`` (``w_layout="kn"``, the JAX ``kernel_q4``: row 2i in
+the low nibble, 2i+1 in the high one) or its transpose ``[N, K/2]``
+(``"nk"``, k contiguous: byte i of row n holds k = 2i and 2i+1 of column n;
+the port's ``Int4Linear``) with group scales ``[K/gs, N]``.
 
 Numerics of the kernels and of their plain versions:
 
@@ -34,13 +36,15 @@ Each wrapper takes the plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises on what the kernel does not take); there
 is no fallback between the two.
 
-K8 has two kernels, chosen before the launch by a static property of the
-operands (:func:`int8_route`): bf16 x against an ``nk`` weight with
-16-byte aligned rows and K % 16 == 0 (every int8 linear and tied head of
-the serving modules) runs ``int8_matmul_kernel_tc`` on the tensor cores,
-tiled and split along K by :func:`int8_tc_plan`; fp32 x, the ``kn`` layout
-and unaligned operands run the CUDA-core kernel. A split plan sums its
-fp32 partials in a fixed order in a per-device workspace
+K8 and K9/K10 each have two kernels, chosen before the launch by a static
+property of the operands (:func:`int8_route`, :func:`int4_route`): bf16 x
+against an ``nk`` weight with 16-byte aligned rows and K % 16 == 0 (every
+int8 / int4 linear and tied head of the serving modules) runs
+``int8_matmul_kernel_tc`` / ``int4_matmul_kernel_tc`` (K9 fold, K10's
+modes) on the tensor cores, tiled and split along K by
+:func:`int8_tc_plan`; fp32 x, the ``kn`` layout, K9's ``"split"`` mode and
+unaligned operands run the CUDA-core kernels. A split plan sums its fp32
+partials in a fixed order in a workspace of the device and stream
 (:func:`_split_workspace`), so two calls give the same bits.
 
 ``w8a8_matmul`` has no TPU kernel (JAX runs ``lax.dot_general`` int8 x int8
@@ -159,9 +163,14 @@ def int8_matmul_ref(x, w_q, scale, w_layout: str = "kn") -> torch.Tensor:
 
 
 def int4_matmul_ref(x, w_p, scale, kernel: str = "fold",
-                    scale_row: int = 0) -> torch.Tensor:
+                    scale_row: int = 0, w_layout: str = "kn") -> torch.Tensor:
     """Plain version of K9 (``"fold"``, ``"split"``) and of K10's modes
-    (``"stream"``, ``"noscale"``, which apply ``scale[scale_row]``)."""
+    (``"stream"``, ``"noscale"``, which apply ``scale[scale_row]``), for
+    either layout of the packed weight."""
+    if w_layout == "nk":
+        w_p = w_p.t()
+    elif w_layout != "kn":
+        raise ValueError(w_layout)
     acc = _acc(x.dtype)
     k_dim, n_dim = 2 * w_p.shape[0], w_p.shape[1]
     g = scale.shape[0]
@@ -188,7 +197,7 @@ def int4_matmul_ref(x, w_p, scale, kernel: str = "fold",
     return y.reshape(*lead, n_dim).to(x.dtype)
 
 
-# -- K8's route and tensor-core plan ---------------------------------------------
+# -- the routes and the tensor-core plan -----------------------------------------
 
 TC_K_STEP = 64   # k per step of the tensor-core kernel's ring
 # (bm, bn) tiles the tensor-core kernel is built for: 16 x 32 (decode, and
@@ -211,8 +220,31 @@ def int8_route(x2: torch.Tensor, w_q: torch.Tensor, w_layout: str) -> str:
     return "tc"
 
 
-def int8_tc_plan(m: int, k: int, n: int, sm_count: int):
-    """``(bm, bn, splits)`` of the tensor-core K8 at ``[m, k] @ [k, n]``.
+def int4_route(x2: torch.Tensor, w_p: torch.Tensor, w_layout: str,
+               mode: str, group_size: int) -> str:
+    """Which K9/K10 kernel takes ``x2 [M, K] @ dequant4(w_p)``: ``"tc"``
+    (tensor cores) for bf16 x against an ``nk`` packed weight in mode
+    ``"fold"``, ``"stream"`` or ``"noscale"``, with K % 16 == 0, a group
+    size that is a multiple of 16 (a lane's 16 k lie in one group), k
+    contiguous, 16-byte aligned rows and 16-byte aligned pointers; else
+    ``"cuda"`` (the CUDA-core kernel: fp32 x, the ``kn`` layout,
+    ``"split"``, or operands the tensor-core tiles cannot read with
+    16-byte copies)."""
+    k_dim = x2.shape[-1]
+    if (x2.dtype != torch.bfloat16 or w_layout != "nk"
+            or mode not in ("fold", "stream", "noscale")):
+        return "cuda"
+    if (k_dim % 16 or group_size % 16 or w_p.stride(1) != 1
+            or w_p.stride(0) % 16 or w_p.data_ptr() % 16
+            or x2.data_ptr() % 16):
+        return "cuda"
+    return "tc"
+
+
+def int8_tc_plan(m: int, k: int, n: int, sm_count: int, *,
+                 wide: bool = True):
+    """``(bm, bn, splits)`` of the tensor-core K8 or K9/K10 at ``[m, k] @
+    [k, n]``.
 
     Prefill (m > 16) takes 64 x 128 tiles, so each widened weight fragment
     feeds four 16-row ``mma`` tiles, where those tiles alone fill the SMs;
@@ -221,8 +253,9 @@ def int8_tc_plan(m: int, k: int, n: int, sm_count: int):
     4,748). If the 16 x 32 tiles are still fewer than ``sm_count``, K
     splits across CTAs in whole 64-deep steps, none empty: the fewest
     splits that make the grid at least ``sm_count`` CTAs (all of the steps
-    at most). The 64-row tile never splits."""
-    if m > 16 and -(-m // 64) * -(-n // 128) >= sm_count:
+    at most). The 64-row tile never splits. ``wide=False`` (K10's modes,
+    built for the 16 x 32 tile only) always takes the 16 x 32 tile."""
+    if wide and m > 16 and -(-m // 64) * -(-n // 128) >= sm_count:
         return 64, 128, 1
     tiles = -(-m // 16) * -(-n // 32)
     steps = -(-k // TC_K_STEP)
@@ -242,21 +275,48 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# per device: (fp32 partials, int32 tile counters), grown on demand; the
-# kernel leaves every counter at 0, and calls on one stream run in order
+# (device index, stream handle) -> (fp32 partials, int32 tile counters),
+# grown on demand. Calls on one stream run in order and the kernel leaves
+# every counter at 0, so the calls of one stream share one workspace;
+# two streams never do. A grown workspace's old buffers move to
+# _RETIRED and are never freed: a CUDA graph captured over a split-K call
+# keeps their addresses, and replays it after a larger call has grown the
+# workspace.
 _WORKSPACE = {}
+_RETIRED = []
 
 
-def _split_workspace(device: torch.device, floats: int, tiles: int):
-    """The split-K workspace of ``device``: at least ``floats`` fp32
-    partials and ``tiles`` counters (zeroed when allocated)."""
-    ws, counters = _WORKSPACE.get(device.index, (None, None))
+def _split_workspace(device: torch.device, stream: int, floats: int,
+                     tiles: int):
+    """The split-K workspace of ``device`` and ``stream`` (a stream
+    handle): at least ``floats`` fp32 partials and ``tiles`` counters
+    (zeroed when allocated)."""
+    key = (device.index, stream)
+    ws, counters = _WORKSPACE.get(key, (None, None))
     if ws is None or ws.numel() < floats:
+        if ws is not None:
+            _RETIRED.append(ws)
         ws = torch.empty(floats, dtype=torch.float32, device=device)
     if counters is None or counters.numel() < tiles:
+        if counters is not None:
+            _RETIRED.append(counters)
         counters = torch.zeros(tiles, dtype=torch.int32, device=device)
-    _WORKSPACE[device.index] = (ws, counters)
+    _WORKSPACE[key] = (ws, counters)
     return ws, counters
+
+
+def _tc_plan_args(x2, m, k_dim, n_dim, stream, *, wide=True):
+    """``(bm, bn, splits, ws, counters)`` launch arguments of a tensor-core
+    plan (pointers 0 when it does not split)."""
+    bm, bn, splits = int8_tc_plan(m, k_dim, n_dim,
+                                  _sm_count(x2.device.index), wide=wide)
+    ws = counters = 0
+    if splits > 1:
+        tiles = -(-m // bm) * -(-n_dim // bn)
+        wsb, cnt = _split_workspace(x2.device, stream, splits * m * n_dim,
+                                    tiles)
+        ws, counters = wsb.data_ptr(), cnt.data_ptr()
+    return bm, bn, splits, ws, counters
 
 
 # -- wrappers ---------------------------------------------------------------------
@@ -300,22 +360,14 @@ def int8_matmul(x, w_q, scale, *, w_layout: str = "kn") -> torch.Tensor:
     out = torch.empty((m, n_dim), dtype=x.dtype, device=x.device)
     if m:
         lib = _build.library()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         tc = int8_route(x2, w_q, w_layout) == "tc"
-        bm = bn = 0
-        splits, ws, counters = 1, 0, 0
-        if tc:
-            bm, bn, splits = int8_tc_plan(m, k_dim, n_dim,
-                                          _sm_count(x.device.index))
-            if splits > 1:
-                tiles = -(-m // bm) * -(-n_dim // bn)
-                wsb, cnt = _split_workspace(x.device, splits * m * n_dim,
-                                            tiles)
-                ws, counters = wsb.data_ptr(), cnt.data_ptr()
+        plan = (_tc_plan_args(x2, m, k_dim, n_dim, stream) if tc
+                else (0, 0, 1, 0, 0))
         err = lib.int8_matmul_launch(
             x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            m, n_dim, k_dim, sn, sk, int(x.dtype == torch.bfloat16), bm, bn,
-            splits, ws, counters,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            m, n_dim, k_dim, sn, sk, int(x.dtype == torch.bfloat16), *plan,
+            stream)
         _build.check(err, "int8_matmul")
         int8_matmul.launches += 1
         int8_matmul.tc_launches += int(tc)
@@ -326,62 +378,84 @@ int8_matmul.launches = 0
 int8_matmul.tc_launches = 0
 
 
-def _int4_launch(name, x, w_p, scale, mode: str, scale_row: int):
+def _int4_launch(fn, x, w_p, scale, mode: str, scale_row: int,
+                 w_layout: str):
+    """Launch K9/K10 on the route :func:`int4_route` picks, counting the
+    launch on ``fn`` (``launches``, and ``tc_launches`` on the tensor
+    cores)."""
+    name = fn.__name__
+    if w_layout not in ("kn", "nk"):
+        raise ValueError(w_layout)
     k_dim = x.shape[-1]
-    n_dim = w_p.shape[1]
+    n_dim = w_p.shape[1] if w_layout == "kn" else w_p.shape[0]
     x2 = x.reshape(-1, k_dim)
     _check_common(name, x2, w_p, scale, n_dim)
     g = scale.shape[0]
-    _check(w_p.is_contiguous() and tuple(w_p.shape) == (k_dim // 2, n_dim)
-           and k_dim % 2 == 0, name, "w_p must be contiguous [K/2, N]")
+    shape = (k_dim // 2, n_dim) if w_layout == "kn" else (n_dim, k_dim // 2)
+    _check(tuple(w_p.shape) == shape and k_dim % 2 == 0, name,
+           f"w_p must be {'[K/2, N]' if w_layout == 'kn' else '[N, K/2]'}")
     _check(scale.dim() == 2 and scale.shape[1] == n_dim and g > 0
            and k_dim % g == 0 and (k_dim // g) % 16 == 0, name,
            "scale must be [K/gs, N]; the kernel takes group sizes that are "
            "multiples of 16")
     _check(0 <= scale_row < g, name, "scale_row out of range")
+    sn, sk = ((w_p.stride(1), w_p.stride(0)) if w_layout == "kn"
+              else (w_p.stride(0), w_p.stride(1)))
+    gs = k_dim // g
     m = x2.shape[0]
     out = torch.empty((m, n_dim), dtype=x.dtype, device=x.device)
     if m:
         lib = _build.library()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        tc = int4_route(x2, w_p, w_layout, mode, gs) == "tc"
+        # K10's modes are built for the 16 x 32 tile alone
+        plan = (_tc_plan_args(x2, m, k_dim, n_dim, stream,
+                              wide=mode == "fold") if tc
+                else (0, 0, 1, 0, 0))
         err = lib.int4_matmul_launch(
             x2.data_ptr(), w_p.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            m, n_dim, k_dim, k_dim // g, INT4_MODES[mode], scale_row,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            m, n_dim, k_dim, gs, INT4_MODES[mode], scale_row,
+            int(x.dtype == torch.bfloat16), sn, sk, *plan, stream)
         _build.check(err, name)
-    return out.reshape(*x.shape[:-1], n_dim), m > 0
+        fn.launches += 1
+        fn.tc_launches += int(tc)
+    return out.reshape(*x.shape[:-1], n_dim)
 
 
-def int4_matmul(x, w_p, scale, *, kernel: str = "fold") -> torch.Tensor:
+def int4_matmul(x, w_p, scale, *, kernel: str = "fold",
+                w_layout: str = "kn") -> torch.Tensor:
     """``x [..., K] @ dequant4(w_p)``: K9 (``kernel="fold"``, the modules'
-    body, or ``"split"``) on the card, the plain version on the CPU."""
+    body, or ``"split"``) on the card, the plain version on the CPU. On
+    the card :func:`int4_route` picks the tensor-core kernel (bf16 fold
+    against an aligned ``nk`` weight: ``int4_matmul.tc_launches`` counts
+    it) or the CUDA-core one, which reads ``w_p`` through its strides;
+    ``int4_matmul.launches`` counts both."""
     if kernel not in ("fold", "split"):
         raise ValueError(kernel)
     if x.device.type == "cpu":
-        return int4_matmul_ref(x, w_p, scale, kernel)
-    out, ran = _int4_launch("int4_matmul", x, w_p, scale, kernel, 0)
-    int4_matmul.launches += int(ran)
-    return out
+        return int4_matmul_ref(x, w_p, scale, kernel, 0, w_layout)
+    return _int4_launch(int4_matmul, x, w_p, scale, kernel, 0, w_layout)
 
 
 int4_matmul.launches = 0
+int4_matmul.tc_launches = 0
 
 
-def int4_attribution(x, w_p, scale, *, mode: str,
-                     scale_row: int) -> torch.Tensor:
+def int4_attribution(x, w_p, scale, *, mode: str, scale_row: int,
+                     w_layout: str = "kn") -> torch.Tensor:
     """K10: K9's traffic with ``mode="stream"`` (packed bytes dotted as
-    int8) or ``"noscale"`` (unpacked, one scale row at the end)."""
+    int8) or ``"noscale"`` (unpacked, one scale row at the end); routed
+    and counted as :func:`int4_matmul` (``int4_attribution.tc_launches``)."""
     if mode not in ("stream", "noscale"):
         raise ValueError(mode)
     if x.device.type == "cpu":
-        return int4_matmul_ref(x, w_p, scale, mode, scale_row)
-    out, ran = _int4_launch("int4_attribution", x, w_p, scale, mode,
-                            scale_row)
-    int4_attribution.launches += int(ran)
-    return out
+        return int4_matmul_ref(x, w_p, scale, mode, scale_row, w_layout)
+    return _int4_launch(int4_attribution, x, w_p, scale, mode, scale_row,
+                        w_layout)
 
 
 int4_attribution.launches = 0
+int4_attribution.tc_launches = 0
 
 
 def w8a8_matmul(x, w_q, w_scale, *, w_layout: str = "kn") -> torch.Tensor:

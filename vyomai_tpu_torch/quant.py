@@ -6,7 +6,7 @@ of ``vyomai_tpu.quant``).
 - every ``nn.Linear`` (except those named in ``exclude``) becomes an
   :class:`Int8Linear` (int8 weight ``[out, in]`` + one fp32 scale per
   output channel) or, with ``bits=4``, an :class:`Int4Linear` (packed int4
-  ``[in/2, out]`` + fp32 scales per ``group_size`` input rows); a linear
+  ``[out, in/2]`` + fp32 scales per ``group_size`` input rows); a linear
   whose input width does not divide ``group_size`` stays int8;
 - with ``embed``, a token table named ``embed_tokens`` / ``word_embeddings``
   becomes an :class:`Int8Embedding` (int8 rows + one scale per row). It
@@ -17,8 +17,10 @@ of ``vyomai_tpu.quant``).
 - norms, biases and positional tables stay float.
 
 The quantizers are the JAX package's, bit for bit: an ``Int8Linear``'s
-``weight_q`` is the transpose of JAX's ``kernel_q``, an ``Int4Linear``'s
-``weight_q4`` is JAX's ``kernel_q4`` itself. ``core.nn.apply_linear`` /
+``weight_q`` is the transpose of JAX's ``kernel_q``, and an ``Int4Linear``'s
+``weight_q4`` the transpose of JAX's ``kernel_q4`` (k contiguous: byte i of
+row n holds input rows 2i and 2i+1 of output n, the layout the tensor-core
+K9 reads). ``core.nn.apply_linear`` /
 ``apply_embedding`` / ``apply_tied_lm_head`` dispatch on the module, so the
 serving path runs a quantized model with no special case at its call sites.
 
@@ -63,26 +65,26 @@ class Int8Linear(nn.Module):
 
 
 class Int4Linear(nn.Module):
-    """``x @ dequant4(weight_q4) (+ bias)`` through K9."""
+    """``x @ dequant4(weight_q4.T) (+ bias)`` through K9's ``nk`` form."""
 
     def __init__(self, weight_q4: torch.Tensor, scale: torch.Tensor, *,
                  bias: Optional[torch.Tensor] = None):
         super().__init__()
-        self.register_buffer("weight_q4", weight_q4)      # [in/2, out] int8
+        self.register_buffer("weight_q4", weight_q4)      # [out, in/2] int8
         self.register_buffer("scale", scale)              # [in/gs, out] fp32
         self.register_buffer("bias", bias)
 
     @property
     def group_size(self) -> int:
-        return 2 * self.weight_q4.shape[0] // self.scale.shape[0]
+        return 2 * self.weight_q4.shape[1] // self.scale.shape[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = int4_matmul(x, self.weight_q4, self.scale)
+        y = int4_matmul(x, self.weight_q4, self.scale, w_layout="nk")
         return y if self.bias is None else y + self.bias
 
     def dequantized(self) -> torch.Tensor:
         """fp32 ``[out, in]`` reconstruction."""
-        return dequantize_int4(self.weight_q4, self.scale).t()
+        return dequantize_int4(self.weight_q4.t(), self.scale).t()
 
 
 class Int8Embedding(nn.Module):
@@ -123,7 +125,7 @@ def _quantize_linear(lin: nn.Linear, bits: int, group_size: int,
     w = lin.weight.detach()                               # [out, in]
     if bits == 4 and w.shape[1] % group_size == 0:
         q4, s = quantize_weight_int4(w.t(), group_size=group_size)
-        return Int4Linear(q4.contiguous(), s, bias=_bias(lin))
+        return Int4Linear(q4.t().contiguous(), s, bias=_bias(lin))
     # int8, and the int4 fallback where K does not divide group_size
     q, s = quantize_weight(w, contract_axis=1)
     return Int8Linear(q, s, act_q=act_bits == 8, bias=_bias(lin))

@@ -7,13 +7,15 @@
 For each linear shape of Qwen3-0.6B (and its tied head) at M decode
 tokens, bf16 activations: ``torch.matmul`` on the bf16 weight, the plain
 int8 version, K8 (int8, the modules' ``nk`` layout), K9 fold and split
-(int4, group ``gs``). Then the int4 attribution of ``int4_dense_bench``
+(int4, group ``gs``, the modules' ``nk`` packed layout). Then the int4 attribution of ``int4_dense_bench``
 at M=8, K=N=2048: bf16, K8, K9 fold, and K10's ``stream`` (the packed bytes
 dotted as int8: K9's traffic without unpack or group scales) and
 ``noscale`` (unpack, one scale row) modes. One JSON line per shape.
 
 Times are medians of CUDA-event launches with the 50 MB L2 flushed before
-each (the weights come from device memory, as in a decode step). Part 2 of
+each (the weights come from device memory, as in a decode step) and a
+~1 ms sleep kernel queued behind the flush, so the events time the
+device's work and not the host's enqueue (as ``chip_smoke.cuda_ms``). Part 2 of
 the JAX bench (static-cache ``generate``) waits for the port's
 ``generate``; ``chip_smoke.py`` serves the quantized model instead.
 """
@@ -31,15 +33,20 @@ QWEN3_SHAPES = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
                 (3072, 1024), (1024, 151936))
 
 
+# cycles of the sleep kernel queued before each timed call (~1 ms)
+SLEEP_CYCLES = 2_000_000
+
+
 def time_ms(fn, flush: torch.Tensor, iters: int = 20,
             warmup: int = 3) -> float:
     """Median device time of ``fn`` in ms (CUDA events), the L2 flushed
-    before each timed launch."""
+    and a sleep kernel queued before each timed launch."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -60,6 +67,7 @@ def _weights(k: int, n: int, gs: int, seed: int):
     q, s = qm.quantize_weight(w.t(), contract_axis=1)
     q = q.contiguous()   # [N, K], k contiguous, as the modules store it
     p, s4 = qm.quantize_weight_int4(w, group_size=gs)
+    p = p.t().contiguous()   # [N, K/2], k contiguous, as the modules
     return w.to(torch.bfloat16), q, s, p, s4
 
 
@@ -73,10 +81,10 @@ def bench_shape(m: int, k: int, n: int, gs: int = 128,
         "bf16": (lambda: x @ w_bf, 2 * k * n),
         "int8_plain": (lambda: qm.int8_matmul_ref(x, q, s, "nk"), k * n),
         "int8": (lambda: qm.int8_matmul(x, q, s, w_layout="nk"), k * n),
-        "int4_fold": (lambda: qm.int4_matmul(x, p, s4, kernel="fold"),
-                      k * n // 2),
-        "int4_split": (lambda: qm.int4_matmul(x, p, s4, kernel="split"),
-                       k * n // 2),
+        "int4_fold": (lambda: qm.int4_matmul(x, p, s4, kernel="fold",
+                                             w_layout="nk"), k * n // 2),
+        "int4_split": (lambda: qm.int4_matmul(x, p, s4, kernel="split",
+                                              w_layout="nk"), k * n // 2),
     }
     out = {"m": m, "k": k, "n": n, "gs": gs}
     for name, (fn, nbytes) in variants.items():
@@ -98,11 +106,12 @@ def int4_attribution(m: int = 8, k: int = 2048, n: int = 2048,
     variants = {
         "bf16": lambda: x @ w_bf,
         "int8": lambda: qm.int8_matmul(x, q, s, w_layout="nk"),
-        "int4": lambda: qm.int4_matmul(x, p, s4, kernel="fold"),
-        "int4_stream": lambda: qm.int4_attribution(x, p, s4, mode="stream",
-                                                   scale_row=row),
+        "int4": lambda: qm.int4_matmul(x, p, s4, kernel="fold",
+                                       w_layout="nk"),
+        "int4_stream": lambda: qm.int4_attribution(
+            x, p, s4, mode="stream", scale_row=row, w_layout="nk"),
         "int4_noscale": lambda: qm.int4_attribution(
-            x, p, s4, mode="noscale", scale_row=row),
+            x, p, s4, mode="noscale", scale_row=row, w_layout="nk"),
     }
     us = {name: 1e3 * time_ms(fn, flush, iters)
           for name, fn in variants.items()}
