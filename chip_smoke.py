@@ -12,8 +12,12 @@ and exits non-zero):
    count with ``cuobjdump`` the tensor-core (HMMA) instructions and the
    registers of each bf16 tensor-core kernel (the attention forwards K1,
    K5/K6, the backwards K2/K3 and K7, K8's int8 matmul, and the int4
-   matmul of K9 fold and K10's stream / noscale);
-2. K4 paged decode against its plain version at the serving shapes;
+   matmul of K9 fold and K10's stream / noscale), and print the registers,
+   shared memory and stack of K4's split-KV pair (``k4_kernels``);
+2. K4 paged decode (the split-KV pair) against its plain version at the
+   serving shapes (``K4_LENS``: a ragged batch, phase 5's tick, one lane
+   at 1,024 tokens), each case with its plan, five calls bit-identical,
+   its time, bound and share;
 3. K1 flash forward against its plain version at the prefill and training
    shapes and the contract's edges (ragged, causal, fully masked rows);
 4. K2/K3 flash backward against their plain versions at the training
@@ -52,11 +56,12 @@ and exits non-zero):
     tile, splits and grid; the split-K reduction's determinism for int8
     and int4; then the K10 path (``quant_bench.int4_attribution``);
 14. K4's int8 and int4 pool variants against their plain versions at
-    phase 2's shapes;
+    phase 2's cases;
 15. end-to-end quantized serving: phase 5's workload and seeded weights
     through ``quantize_model``, int8 weights + int8 pool, then int4
     weights + int4 pool; each serving run (5 and 15) also traces one
-    decode tick for its device time per step (and K8's and K9's);
+    decode tick for its device time per step, K4's (both kernels, each
+    required once a layer) and K8's and K9's;
 16. quantized numerics: phase 6's method for int8 + int8 pool, int4 +
     int4 pool and W8A8, quantized on the CPU and copied to the card.
 
@@ -244,6 +249,41 @@ TC_KERNELS = ("flash_fwd_kernel_tc<128>", "flash_fwd_kernel_tc<64>",
               "int4_matmul_kernel_tc<2,1,1>", "int4_matmul_kernel_tc<3,1,1>")
 
 
+# K4's split-KV pair: the partitions' kernel and their combine
+K4_KERNELS = ("paged_decode_split_kernel", "paged_decode_combine_kernel")
+
+
+def k4_kernels(so: Path) -> dict:
+    """Registers, shared memory and stack bytes of each instantiation of
+    K4's two kernels in the built library (``cuobjdump -res-usage``):
+    {"paged_decode_split_kernel<bf16,128,0,2>": (regs, smem, stack), ...};
+    the split kernel's arguments are q's type, D, the pool (0 float, 1
+    int8, 2 int4) and the query rows a lane keeps (2 or 8)."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    text = subprocess.run([str(tool), "-res-usage", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    pat = re.compile(r"(" + "|".join(K4_KERNELS) + r")I(13__nv_bfloat16|f)"
+                     r"((?:Li\d+E)+)")
+    found, name = {}, None
+    for line in text.splitlines():
+        if "Function" in line:
+            m = pat.search(line)
+            name = None
+            if m:
+                args = ["bf16" if m.group(2) != "f" else "f32"]
+                args += re.findall(r"Li(\d+)E", m.group(3))
+                name = f"{m.group(1)}<{','.join(args)}>"
+        elif name:
+            vals = [re.search(rf"{k}:(\d+)", line)
+                    for k in ("REG", "SHARED", "STACK")]
+            if all(vals):
+                found[name] = tuple(int(v.group(1)) for v in vals)
+                name = None
+    return dict(sorted(found.items()))
+
+
 def live_mask(torch, bias, lq, lk, causal, q_offset):
     """Which (query, key) pairs a call attends ``[B|1, H|1, Lq, Lk]``:
     the bias above the mask constant and, with ``causal``, keys at or
@@ -278,45 +318,84 @@ def sdpa_mask(torch, bias, lq, lk, causal, q_offset, dtype):
     return None if mask is None else mask.to(dtype)
 
 
-def phase_decode(torch, paged_decode, ref_fn, flush, card):
-    """K4 at B=16, H=16, H_kv=8, BS=16, MAXB=64."""
+# K4's cases besides phase 2's ragged batch: phase 5's traced tick (every
+# lane at ctx 500) and one lane at 1,024 tokens
+K4_LENS = {"ragged": [1, 16, 17, 100, 255, 256, 300, 511, 512, 513, 700,
+                      999, 1023, 1024, 0, 1500],
+           "tick": [500] * 16, "one lane": [1024]}
+
+
+def k4_case(torch, pdm, flush, card, label, q, pool, bt, sl, h_kv,
+            sc=None, per_row=None):
+    """One K4 call against its plain version: the error bound, a dead lane
+    (seq_len 0) at 0, five calls with the same bits; then the plan, the
+    kernel pair's time, the plain version's, the bound and its share.
+    ``per_row``: stored bytes of one K (or V) row with its scale."""
+    fn = lambda: pdm.paged_decode(q, pool, bt, sl, h_kv, scales=sc)  # noqa
+    ref_fn = lambda: pdm.paged_attention_decode_ref(  # noqa: E731
+        q, pool, bt, sl, h_kv, sc)
+    out = fn()
+    torch.cuda.synchronize()
+    ref = ref_fn()
+    err = float((out.float() - ref.float()).abs().max())
+    atol = FP32_ATOL if q.dtype == torch.float32 else bf16_atol(ref)
+    check(err <= atol, f"K4 {label}: max err {err} > {atol}")
+    dead = (sl == 0).nonzero().flatten().tolist()
+    check(all(bool(torch.all(out[i] == 0)) for i in dead),
+          f"K4 {label}: a dead lane is not 0")
+    again = [fn() for _ in range(5)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, out) for o in again),
+          f"K4 {label}: five calls differ in their bits")
+    ms = cuda_ms(fn, flush)
+    plain_ms = cuda_ms(ref_fn, flush)
+    b, h, d = q.shape
+    maxb = bt.shape[1]
+    bs = pool.shape[2]
+    live = int(torch.clamp(sl.long(), 0, maxb * bs).sum())
+    if per_row is None:
+        per_row = h_kv * d * q.element_size()
+    # no single PyTorch call reads a block-table pool
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(4 * d * h * live,
+                       nbytes(q, out, bt, sl) + 2 * live * per_row,
+                       q.dtype))
+    part, splits = pdm._decode_plan(b, h_kv, bs, maxb)
+    phase(f"K4 {label}: plan P={part} S={splits} grid {b}x{h_kv}x{splits}="
+          f"{b * h_kv * splits}; max_abs_err={err} (atol {atol}), 5 calls "
+          f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
+          f"{rec['bound_ms'] / ms:.3f} [{card}]")
+    return rec
+
+
+def phase_decode(torch, pdm, flush, card):
+    """K4 at B=16, H=16, H_kv=8, BS=16, MAXB=64 (one lane: B=1): phase
+    2's ragged batch, phase 5's tick and one lane at 1,024 tokens."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
-    b, h, h_kv, bs, maxb = 16, 16, 8, 16, 64
-    nb = b * maxb
+    h, h_kv, bs, maxb = 16, 8, 16, 64
     main = None
-    for d, dtype in ((128, torch.bfloat16), (128, torch.float32),
-                     (64, torch.bfloat16)):
-        q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
-        pool = torch.randn(nb, 2, bs, h_kv * d, device=dev,
-                           generator=g).to(dtype)
-        bt = torch.randperm(nb, device=dev, generator=g).reshape(
-            b, maxb).int()
-        lens = [1, 16, 17, 100, 255, 256, 300, 511, 512, 513, 700, 999,
-                1023, 1024, 0, 1500]    # partial blocks, a dead lane,
-        sl = torch.tensor(lens, dtype=torch.int32, device=dev)  # oversized
-        bt[3, 7:] = -1                  # unused entries past the live ones
-        out = paged_decode(q, pool, bt, sl, h_kv)
-        torch.cuda.synchronize()
-        ref = ref_fn(q, pool, bt, sl, h_kv)
-        err = float((out.float() - ref.float()).abs().max())
-        atol = FP32_ATOL if dtype == torch.float32 else bf16_atol(ref)
-        check(err <= atol, f"K4 D={d} {dtype}: max err {err} > {atol}")
-        check(bool(torch.all(out[14] == 0)), "K4 dead lane is not 0")
-        ms = cuda_ms(lambda: paged_decode(q, pool, bt, sl, h_kv), flush)
-        plain_ms = cuda_ms(lambda: ref_fn(q, pool, bt, sl, h_kv), flush)
-        phase(f"K4 paged_decode D={d} {str(dtype)[6:]}: max_abs_err={err} "
-              f"(atol {atol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"[{card}]")
-        if main is None:
-            # no single PyTorch call reads a block-table pool
-            live = int(torch.clamp(sl.long(), max=maxb * bs).sum())
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=None, **bound(
-                            4 * d * h * live,
-                            (q.numel() + 2 * live * h_kv * d)
-                            * q.element_size() + nbytes(bt, sl, out),
-                            dtype))
+    for case, lens in K4_LENS.items():
+        b = len(lens)
+        nb = b * maxb
+        for d, dtype in ((128, torch.bfloat16), (128, torch.float32),
+                         (64, torch.bfloat16)):
+            q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
+            pool = torch.randn(nb, 2, bs, h_kv * d, device=dev,
+                               generator=g).to(dtype)
+            bt = torch.randperm(nb, device=dev, generator=g).reshape(
+                b, maxb).int()
+            sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            if case == "ragged":   # partial blocks, a dead lane, oversized
+                bt[3, 7:] = -1     # unused entries past the live ones
+            rec = k4_case(torch, pdm, flush, card,
+                          f"paged_decode {case} D={d} {str(dtype)[6:]}", q,
+                          pool, bt, sl, h_kv)
+            if main is None:
+                main = rec
+            del q, pool
+    torch.cuda.empty_cache()
     return main
 
 
@@ -663,8 +742,10 @@ def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
     ``max_batch`` lanes at position ``ctx``, over blocks of the engine's
     pool: (device kernel ms per step from a ``torch.profiler`` trace of the
     tick, wall ms per step of the same tick unprofiled, the three kernels
-    with the most device time, K8's and K9's device ms per step). The
-    device figures are None when the profiler saw no device time."""
+    with the most device time, K8's, K9's and K4's device ms per step (K4:
+    both kernels of its split-KV pair), and the launches per step of each
+    K4 kernel). The device figures are None when the profiler saw no
+    device time."""
     b, bs, maxb = eng.max_batch, eng.block_size, eng.max_blocks_per_seq
     need = -(-(ctx + steps) // bs)
     dev = eng.device
@@ -690,7 +771,7 @@ def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         tick()
         torch.cuda.synchronize()
-    per_kernel = {}
+    per_kernel, k4_calls = {}, dict.fromkeys(K4_KERNELS, 0)
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
@@ -698,14 +779,21 @@ def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
+        for name in K4_KERNELS:
+            if name in e.key:
+                k4_calls[name] += e.count
     total = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
     k8 = sum(v for k, v in per_kernel.items() if "int8_matmul_kernel" in k)
     k9 = sum(v for k, v in per_kernel.items() if "int4_matmul_kernel" in k)
+    k4 = sum(v for k, v in per_kernel.items()
+             if any(name in k for name in K4_KERNELS))
     return ((total / steps) if total > 0 else None, wall,
             [(k[:60], round(v / steps, 4)) for k, v in top],
             (k8 / steps) if total > 0 else None,
-            (k9 / steps) if total > 0 else None)
+            (k9 / steps) if total > 0 else None,
+            (k4 / steps) if total > 0 else None,
+            {k: v / steps for k, v in k4_calls.items()})
 
 
 def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
@@ -762,11 +850,17 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
         same = sum(a == b for i in outs for a, b in zip(outs[i],
                                                         reference[i]))
         agree = f", greedy tokens agreeing with bf16 {same / tokens:.4f}"
-    dev_ms, wall_ms, top, k8_ms, k9_ms = decode_tick_ms(torch, pm, eng)
+    dev_ms, wall_ms, top, k8_ms, k9_ms, k4_ms, k4_calls = decode_tick_ms(
+        torch, pm, eng)
     dev_txt = "not measured" if dev_ms is None else \
-        f"{dev_ms:.4f} ms (idle {1 - dev_ms / wall_ms:.3f})"
+        f"{dev_ms:.4f} ms (idle {1 - dev_ms / wall_ms:.3f}), K4 ms / step " \
+        f"{k4_ms:.4f} (launches / step {k4_calls})"
     if quant is not None and k8_ms is not None:
         dev_txt += f", K8 {k8_ms:.4f} ms, K9 {k9_ms:.4f} ms"
+    if dev_ms is not None:   # the traced tick went through the pair
+        n_layers = cfg.num_hidden_layers
+        check(all(c == n_layers for c in k4_calls.values()),
+              f"K4's split-KV pair did not run once a layer: {k4_calls}")
     phase(f"serving Qwen3-0.6B width {label}: {tokens} tokens in "
           f"{wall:.3f} s = {tokens / wall:.1f} tok/s, mean TTFT "
           f"{m['ttft_mean_s']:.4f} s, prefix hits {m['radix_hits']} "
@@ -778,7 +872,8 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
           f"kernels {top}; launches {launches} [{card}]")
     del eng, model
     torch.cuda.empty_cache()
-    return {"launches": launches, "outs": outs, "device_ms": dev_ms}
+    return {"launches": launches, "outs": outs, "device_ms": dev_ms,
+            "k4_ms": k4_ms}
 
 
 def phase_numerics(torch, np, tt, pm, label="fp32", quant=None,
@@ -1456,61 +1551,46 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
 
 
 def phase_quant_decode(torch, pdm, pa, flush, card):
-    """K4's int8 and int4 variants at phase 2's shapes (B=16, H=16,
-    H_kv=8, BS=16, MAXB=64, D=128 and 64, ragged lengths, a dead lane, -1
-    table entries), pools written by ``write_kv`` from random rows."""
+    """K4's int8 and int4 variants at phase 2's cases (B=16, H=16, H_kv=8,
+    BS=16, MAXB=64, D=128 and 64: ragged lengths with a dead lane and -1
+    table entries, phase 5's tick, one lane at 1,024 tokens), pools written
+    by ``write_kv`` from random rows."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(16)
-    b, h, h_kv, bs, maxb = 16, 16, 8, 16, 64
-    nb = b * maxb
-    lens = [1, 16, 17, 100, 255, 256, 300, 511, 512, 513, 700, 999, 1023,
-            1024, 0, 1500]
+    h, h_kv, bs, maxb = 16, 8, 16, 64
     main = {}
     for kind in ("int8", "int4"):
-        for d, dtype in ((128, torch.bfloat16), (128, torch.float32),
-                         (64, torch.bfloat16)):
-            q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
-            width = h_kv * d // (2 if kind == "int4" else 1)
-            pool = torch.zeros(nb, 2, bs, width, dtype=torch.int8,
-                               device=dev)
-            sc = torch.ones((nb, 2, h_kv, bs) if kind == "int4"
-                            else (nb, 2, bs), device=dev)
-            rows = torch.randn(nb * bs, 2, h_kv, d, device=dev, generator=g)
-            pa.write_kv(pool, rows[:, 0], rows[:, 1],
-                        torch.arange(nb, device=dev).repeat_interleave(bs),
-                        torch.arange(bs, device=dev).repeat(nb), scales=sc)
-            del rows
-            bt = torch.randperm(nb, device=dev, generator=g).reshape(
-                b, maxb).int()
-            bt[3, 7:] = -1
-            sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-            fn = lambda: pdm.paged_decode(q, pool, bt, sl, h_kv,  # noqa
-                                          scales=sc)
-            ref_fn = lambda: pdm.paged_attention_decode_ref(  # noqa: E731
-                q, pool, bt, sl, h_kv, sc)
-            out = fn()
-            torch.cuda.synchronize()
-            ref = ref_fn()
-            err = float((out.float() - ref.float()).abs().max())
-            atol = FP32_ATOL if dtype == torch.float32 else bf16_atol(ref)
-            check(err <= atol, f"K4 {kind} D={d} {dtype}: max err {err} > "
-                  f"{atol}")
-            check(bool(torch.all(out[14] == 0)), f"K4 {kind} dead lane != 0")
-            ms = cuda_ms(fn, flush)
-            plain_ms = cuda_ms(ref_fn, flush)
-            live = int(torch.clamp(sl.long(), max=maxb * bs).sum())
-            per_row = width + 4 * (h_kv if kind == "int4" else 1)
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=None, **bound(
-                           4 * d * h * live,
-                           nbytes(q, out, bt, sl) + 2 * live * per_row,
-                           dtype))
-            phase(f"K4 paged_decode_{kind} D={d} {str(dtype)[6:]}: "
-                  f"max_abs_err={err} (atol {atol}) kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-                  f"({rec['bound_by']}) [{card}]")
-            main.setdefault(kind, rec)
-            del q, pool, sc, out, ref
+        for case, lens in K4_LENS.items():
+            b = len(lens)
+            nb = b * maxb
+            for d, dtype in ((128, torch.bfloat16), (128, torch.float32),
+                             (64, torch.bfloat16)):
+                q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
+                width = h_kv * d // (2 if kind == "int4" else 1)
+                pool = torch.zeros(nb, 2, bs, width, dtype=torch.int8,
+                                   device=dev)
+                sc = torch.ones((nb, 2, h_kv, bs) if kind == "int4"
+                                else (nb, 2, bs), device=dev)
+                rows = torch.randn(nb * bs, 2, h_kv, d, device=dev,
+                                   generator=g)
+                pa.write_kv(pool, rows[:, 0], rows[:, 1],
+                            torch.arange(nb, device=dev).repeat_interleave(
+                                bs),
+                            torch.arange(bs, device=dev).repeat(nb),
+                            scales=sc)
+                del rows
+                bt = torch.randperm(nb, device=dev, generator=g).reshape(
+                    b, maxb).int()
+                if case == "ragged":
+                    bt[3, 7:] = -1
+                sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+                per_row = width + 4 * (h_kv if kind == "int4" else 1)
+                rec = k4_case(torch, pdm, flush, card,
+                              f"paged_decode_{kind} {case} D={d} "
+                              f"{str(dtype)[6:]}", q, pool, bt, sl, h_kv,
+                              sc, per_row)
+                main.setdefault(kind, rec)
+                del q, pool, sc
     torch.cuda.empty_cache()
     return main
 
@@ -1545,8 +1625,7 @@ def main():
     from vyomai_tpu_torch.ops import flash_attention as fa
     from vyomai_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_ref)
-    from vyomai_tpu_torch.ops.paged_decode import (
-        paged_attention_decode_ref, paged_decode)
+    from vyomai_tpu_torch.ops.paged_decode import paged_decode
     from vyomai_tpu_torch.ops import short_attention as sa
     from vyomai_tpu_torch.ops import paged_attention as pa
     from vyomai_tpu_torch.ops import paged_decode as pdm
@@ -1564,11 +1643,18 @@ def main():
           f"a bf16 tensor-core kernel without tensor-core code: {tc}")
     check(all(stack == 0 for _, _, stack in tc.values()),
           f"a bf16 tensor-core kernel spills: {tc}")
+    k4_res = k4_kernels(_build.path)
+    phase("K4 split-KV pair (registers, shared memory bytes, stack bytes) "
+          f"<q type, D, pool, group rows> / <q type, D>: {k4_res}")
+    # 24 split kernels (2 q types x 2 D x 3 pools x 2 group sizes) and 4
+    # combine kernels (2 q types x 2 D); nothing else reads the pool
+    check({name.split("<")[0] for name in k4_res} == set(K4_KERNELS)
+          and len(k4_res) == 28,
+          f"K4's kernels are not the split-KV pair: {sorted(k4_res)}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     phase("2/16 K4 paged decode vs plain")
-    k4 = phase_decode(torch, paged_decode, paged_attention_decode_ref,
-                      flush, card)
+    k4 = phase_decode(torch, pdm, flush, card)
     phase("3/16 K1 flash forward vs plain")
     k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
                      flush, card)
@@ -1642,7 +1728,8 @@ def main():
     phase_w8a8_linears(torch, np, tt, qm, pm)
 
     record = {"kernels": [
-        {"name": "paged_decode", "route": "cuda",
+        {"name": "paged_decode[split+combine]", "route": "cuda",
+         "kernels": list(K4_KERNELS),
          "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
          "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
          "launches": served["launches"]["paged_decode"], **k4},
@@ -1697,11 +1784,13 @@ def main():
          "replaces": "benchmarks/int4_dense_bench.py:62",
          "launches": k10_path["int4_attribution_kernel_tc"],
          **qmm["K10"]},
-        {"name": "paged_decode_int8", "route": "cuda",
+        {"name": "paged_decode_int8[split+combine]", "route": "cuda",
+         "kernels": list(K4_KERNELS),
          "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
          "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
          "launches": q8["launches"]["paged_decode_int8"], **k4q["int8"]},
-        {"name": "paged_decode_int4", "route": "cuda",
+        {"name": "paged_decode_int4[split+combine]", "route": "cuda",
+         "kernels": list(K4_KERNELS),
          "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
          "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
          "launches": q4["launches"]["paged_decode_int4"], **k4q["int4"]},

@@ -11,7 +11,10 @@ fp32 bound (atol 2e-5); dead lanes (seq_len 0) are compared with the
 kernel only, since the fallback gives them the mean of V. The cases marked
 ``cuda`` run the hand-written kernel's int8/int4 variants against the
 plain version and skip without a card; JAX is loaded by the ``jx``
-fixture."""
+fixture. ``paged_attention_decode_split_ref``, the card's split-and-combine
+algebra, is held to the JAX kernel and to the full plain version for both
+pools at the partition edges, with one split, a dead lane, ``-1`` entries
+and an oversized ``seq_len``."""
 
 from types import SimpleNamespace
 
@@ -20,10 +23,10 @@ import pytest
 import torch
 
 from vyomai_tpu_torch.ops import paged_attention as tpa
-from vyomai_tpu_torch.ops.paged_decode import (paged_attention_decode_ref,
-                                               paged_decode,
-                                               paged_decode_int4,
-                                               paged_decode_int8)
+from vyomai_tpu_torch.ops import paged_decode as tpd
+from vyomai_tpu_torch.ops.paged_decode import (
+    paged_attention_decode_ref, paged_attention_decode_split_ref,
+    paged_decode, paged_decode_int4, paged_decode_int8)
 
 torch.set_num_threads(1)
 
@@ -216,6 +219,39 @@ def test_plain_matches_xla_fallback_and_table_minus_one(jx, kind):
     np.testing.assert_allclose(fallback.numpy(), ref, atol=ATOL, rtol=0)
 
 
+SPLIT_CASES = {
+    "cut_at_p_minus_1_p_p_plus_1": dict(ctx=(15, 16, 17), partition=16),
+    "cut_at_one_block": dict(ctx=(7, 8, 9), partition=8),
+    "one_split": dict(partition=MAXB * BS),
+    "dead_lane": dict(ctx=(0, 20, 5), partition=8),
+    "minus_one_entries": dict(ctx=(10, 3, 16), partition=8),
+    "oversized_seq_len": dict(ctx=(MAXB * BS + 13, 9, MAXB * BS),
+                              partition=16),
+    "mha": dict(h=4, h_kv=4, partition=24),
+}
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_ref_matches_pallas_kernel_and_plain(jx, kind, name):
+    kw = dict(SPLIT_CASES[name])
+    part = kw.pop("partition")
+    q, pool, bt, sl, sc = _setup(kind, seed=len(name) + 40, **kw)
+    if name == "minus_one_entries":
+        bt[:, 2:] = -1                   # only two live blocks per lane
+    h_kv = kw.get("h_kv", H_KV)
+    ref = np.asarray(jx.pdp.paged_attention_decode_pallas(
+        *map(jx.jnp.asarray, (q, pool, bt, sl)), h_kv, jx.jnp.asarray(sc)))
+    args = tuple(map(_t, (q, pool, bt, sl)))
+    got = paged_attention_decode_split_ref(*args, h_kv, _t(sc),
+                                           partition=part)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
+    plain = paged_attention_decode_ref(*args, h_kv, _t(sc))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL, rtol=0)
+    if name == "dead_lane":
+        assert np.all(got[0].numpy() == 0.0)
+
+
 def test_wrappers_count_no_cpu_launch():
     q, pool, bt, sl, sc = _setup("int4")
     before = (paged_decode.launches, paged_decode_int8.launches,
@@ -261,3 +297,67 @@ def test_quantized_kernel_matches_plain_on_card(cuda, kind, dtype, d):
     atol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * top + 1e-4
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
     assert torch.all(out[2] == 0)
+
+
+# (B, H_kv, BS, MAXB): eight 16-token partitions, phase 2's plan (P = 64,
+# S = 16), and one partition (the first kernel writes the output)
+CARD_SHAPES = {"p16": (6, 2, 16, 8), "p64": (16, 8, 16, 64),
+               "one_split": (256, 8, 16, 8)}
+
+
+def _quant_split_case(cuda, kind, dtype, d, group, shape, seed):
+    """Random pool bytes and scales, lengths at the plan's partition edges
+    (P - 1, P, P + 1, a dead lane, an oversized and a full lane, the rest
+    random); lane 1's table is -1 past its live blocks."""
+    b, h_kv, bs, maxb = shape
+    part, _ = tpd._decode_plan(b, h_kv, bs, maxb)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    nb = 64
+    q = torch.randn(b, h_kv * group, d, device=cuda, generator=g).to(dtype)
+    width = h_kv * d // (2 if kind == "int4" else 1)
+    pool = torch.randint(-128, 128, (nb, 2, bs, width), device=cuda,
+                         generator=g).to(torch.int8)
+    sc_shape = (nb, 2, h_kv, bs) if kind == "int4" else (nb, 2, bs)
+    sc = torch.rand(sc_shape, device=cuda, generator=g) * 0.05
+    bt = torch.randint(0, nb, (b, maxb), device=cuda, generator=g).int()
+    top = maxb * bs
+    edge = [min(part - 1, top), min(part, top), min(part + 1, top), 0,
+            top + 13, top]
+    lens = (edge + np.random.default_rng(seed).integers(
+        0, top + 20, b).tolist())[:b]
+    bt[1, -(-lens[1] // bs):] = -1
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, pool, bt, sl, h_kv, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_quantized_split_pair_matches_plain_on_card(cuda, d, dtype, kind,
+                                                    group, shape):
+    q, pool, bt, sl, h_kv, sc = _quant_split_case(
+        cuda, kind, dtype, d, group, CARD_SHAPES[shape], seed=group + d)
+    fn = paged_decode_int4 if kind == "int4" else paged_decode_int8
+    before = fn.launches
+    out = paged_decode(q, pool, bt, sl, h_kv, scales=sc)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = paged_attention_decode_ref(q, pool, bt, sl, h_kv, sc)
+    top = float(ref.float().abs().max())
+    atol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * top + 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    assert torch.all(out[3] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_quantized_split_pair_gives_the_same_bits_twice_on_card(cuda, kind):
+    q, pool, bt, sl, h_kv, sc = _quant_split_case(
+        cuda, kind, torch.bfloat16, 128, 2, CARD_SHAPES["p64"], seed=5)
+    outs = [paged_decode(q, pool, bt, sl, h_kv, scales=sc)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])

@@ -25,9 +25,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the kernels' launchers (each returns cudaGetLastError())
 _SIGNATURES = {
-    # q, pool, scales, block_tables, seq_lens, out, B, H, H_kv, D, BS, MAXB,
-    # W, quant, is_bf16, stream
-    "paged_decode_launch": [_P] * 6 + [_I] * 9 + [_P],
+    # q, pool, scales, block_tables, seq_lens, out, workspace (acc, m/l),
+    # B, H, H_kv, D, BS, MAXB, W, quant, is_bf16, plan (partition, splits),
+    # stream
+    "paged_decode_launch": [_P] * 8 + [_I] * 11 + [_P],
     # x, w, scale, out, M, N, K, w strides (n, k), is_bf16, tensor-core
     # plan (bm, 0 = CUDA cores; bn; splits), split workspace, counters,
     # stream

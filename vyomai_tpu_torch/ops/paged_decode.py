@@ -20,7 +20,14 @@ variants are not ported yet). Contract, shared by both versions here:
 
 :func:`paged_decode` routes a CPU tensor to :func:`paged_attention_decode_ref`
 and launches the kernel for a CUDA tensor; there is no fallback between the
-two. It counts its launches per variant: ``paged_decode.launches`` (float
+two. On the card a call is a split-KV pair (flash decoding): each lane's
+context is cut into partitions of ``P`` tokens (:func:`_decode_plan`, from
+shapes alone), one CTA per (lane, kv head, partition) writes the
+partition's fp32 ``(m, l, acc)`` to a workspace, and a second kernel
+combines the live partitions in split order; with one partition the first
+kernel writes the output. :func:`paged_attention_decode_split_ref` is that
+algebra in plain PyTorch, for the tests. Each wrapper counts one launch per
+call, both kernels together, per variant: ``paged_decode.launches`` (float
 pools), ``paged_decode_int8.launches`` and ``paged_decode_int4.launches``.
 """
 
@@ -30,6 +37,31 @@ from . import _build
 from .paged_attention import unpack_int4_rows
 
 _DTYPES = (torch.bfloat16, torch.float32)
+
+# CTAs a call's grid aims at: about 16 for each of an H100's 132 SMs, so
+# that the live partitions of a batch whose lanes are half full still fill
+# the card several times over
+_TARGET_CTAS = 2048
+_MAX_TABLE = 256   # table entries one partition spans (csrc kMaxTable)
+
+
+def _decode_plan(b: int, h_kv: int, bs: int, maxb: int):
+    """``(P, S)``: the partition of each lane's context (P tokens, a
+    multiple of ``bs``) and the splits ``S = ceil(maxb * bs / P)`` of the
+    grid ``b x h_kv x S``.
+
+    P is the split length that puts about ``_TARGET_CTAS`` CTAs in the
+    grid, rounded up to whole blocks: P = 64, S = 16 at B=16, H_kv=8,
+    MAXB=64, BS=16; one block a split for a single lane. A partition spans
+    at most ``_MAX_TABLE`` blocks, so the grid is at most
+    ``max(_TARGET_CTAS + b * h_kv, b * h_kv * ceil(maxb / _MAX_TABLE))``.
+    The plan reads shapes only, never ``seq_lens``, so the launch needs no
+    synchronisation and a CUDA graph can capture it."""
+    tokens = maxb * bs
+    want = max(1, -(-_TARGET_CTAS // max(1, b * h_kv)))
+    p = -(-max(tokens, 1) // want)
+    p = min(-(-p // bs) * bs, _MAX_TABLE * bs)
+    return p, max(1, -(-tokens // p))
 
 
 def _scaled_q(q: torch.Tensor) -> torch.Tensor:
@@ -86,6 +118,51 @@ def paged_attention_decode_ref(q, pool, block_tables, seq_lens, h_kv: int,
     return out.to(q.dtype)
 
 
+def paged_attention_decode_split_ref(q, pool, block_tables, seq_lens,
+                                     h_kv: int, scales=None, *,
+                                     partition: int) -> torch.Tensor:
+    """The kernel pair's algebra in plain PyTorch (for the tests): the
+    context cut into ``partition``-token splits, each split's ``m`` (its
+    max, floored at -1e30), ``l`` (the sum of its unscaled ``p``) and
+    unnormalised ``acc`` (``p`` times the value scale, times v), then
+    ``out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s`` over the live
+    splits (``M = max m_s``; no live split gives 0)."""
+    b, h, d = q.shape
+    group = h // h_kv
+    qs = _scaled_q(q)
+    k, v, ks, vs = _gather(pool, block_tables.clamp_min(0).long(), h_kv,
+                           scales)
+    t = k.shape[2]
+    n_split = max(1, -(-t // partition))
+    pad = n_split * partition - t
+
+    def split(x):   # [B, H_kv, T, ...] -> [B, H, S, P, ...]
+        x = x.repeat_interleave(group, dim=1).to(qs.dtype)
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 3) + (0, pad))
+        return x.reshape(b, h, n_split, partition, *x.shape[3:])
+
+    s = torch.einsum("bhd,bhspd->bhsp", qs, split(k))
+    if ks is not None:
+        s = s * split(ks)
+    t_pos = torch.arange(n_split * partition, device=q.device).reshape(
+        n_split, partition)
+    n = seq_lens.to(torch.long).clamp(0, t)[:, None, None, None]
+    s = s.masked_fill(~(t_pos < n), float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)          # [B,H,S,1]
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if vs is not None:   # after l: the value scale folds into p
+        p = p * split(vs)
+    acc = torch.einsum("bhsp,bhspd->bhsd", p, split(v))
+    live = (t_pos[:, 0] < n[..., 0])[..., None]                  # [B,1,S,1]
+    m = m.masked_fill(~live, float("-inf"))
+    big = m.amax(dim=2, keepdim=True).clamp_min(-1e30)
+    w = torch.exp(m - big)
+    den = (w * l).sum(dim=2)
+    out = (w * acc).sum(dim=2) / torch.where(den == 0, 1.0, den)
+    return out.to(q.dtype)
+
+
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"paged_decode: {msg}")
@@ -122,12 +199,21 @@ def _launch(q, pool, block_tables, seq_lens, h_kv: int, scales, quant: int):
     out = torch.empty_like(q)
     if b == 0:
         return out, False
+    part, splits = _decode_plan(b, h_kv, bs, maxb)
+    ws_acc = ws_ml = None
+    if splits > 1:   # the partitions' (acc, m/l), combined by kernel 2
+        ws_acc = torch.empty(b, h, splits, d, dtype=torch.float32,
+                             device=q.device)
+        ws_ml = torch.empty(b, h, splits, 2, dtype=torch.float32,
+                            device=q.device)
     lib = _build.library()
     err = lib.paged_decode_launch(
         q.data_ptr(), pool.data_ptr(),
         None if scales is None else scales.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, h,
-        h_kv, d, bs, maxb, width, quant, int(q.dtype == torch.bfloat16),
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        None if ws_acc is None else ws_acc.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(), b, h, h_kv, d, bs, maxb,
+        width, quant, int(q.dtype == torch.bfloat16), part, splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode")
     return out, True
