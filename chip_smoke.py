@@ -27,10 +27,14 @@ and exits non-zero):
    pairs beside SDPA's backward;
 5. end-to-end serving at Qwen3-0.6B width (``QwenConfig()``, random bf16
    weights from a seeded generator): 24 requests in two waves, the second
-   hitting the radix prefix cache;
+   hitting the radix prefix cache, through pipelined ticks, each a replay
+   of the engine's captured decode step (``HorizonGraph``); then the same
+   requests again with ``pipeline_decode=False``, token for token equal;
 6. serving numerics: the same width at 2 layers and fp32, one 520-token
    prompt, prefill + 8 teacher-forced decode steps on the card against the
-   same functions on the CPU;
+   same functions on the CPU; then one 8-step tick from that prefill as a
+   graph tick and as the eager ``decode_horizon`` on the card and on the
+   CPU (``phase_graph_numerics``);
 7. end-to-end training at the width of the JAX package's ``bench.py``
    (``vyomai_tpu_torch.bench``: 12 layers, hidden 1024, bf16, B=4,
    S=1024, AdamW): the naive step, then the fused one, 3 warm-up + 10
@@ -59,15 +63,22 @@ and exits non-zero):
     phase 2's cases;
 15. end-to-end quantized serving: phase 5's workload and seeded weights
     through ``quantize_model``, int8 weights + int8 pool, then int4
-    weights + int4 pool; each serving run (5 and 15) also traces one
-    decode tick for its device time per step, K4's (both kernels, each
-    required once a layer) and K8's and K9's;
+    weights + int4 pool; each serving run (5 and 15) also runs one decode
+    tick twice on the same inputs over copies of its pool, the eager
+    ``decode_horizon`` and the engine's graph tick (identical tokens and
+    pools required), each traced for its device time per step, K4's (both
+    kernels, each required once a layer) and K8's and K9's (required in
+    the quantized graph), and timed unprofiled for its wall per step
+    (``decode_tick_ms``);
 16. quantized numerics: phase 6's method for int8 + int8 pool, int4 +
     int4 pool and W8A8, quantized on the CPU and copied to the card.
 
 Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15) zeroes its
-kernels' launch counts just before it and reads the counts just after. The line before the last holds the
-kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
+kernels' launch counts just before it and reads the counts just after; a
+replay of the captured decode step adds what its capture counted. The line
+before the last holds the kernels' JSON record, with the decode ticks'
+figures and phase 5's tokens/s pipelined and synchronous; the last line is
+``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -737,71 +748,165 @@ def phase_flash_bwd(torch, fa, flush, card):
     return main
 
 
-def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500):
-    """One decode tick (``steps`` steps, the engine's horizon) of all
-    ``max_batch`` lanes at position ``ctx``, over blocks of the engine's
-    pool: (device kernel ms per step from a ``torch.profiler`` trace of the
-    tick, wall ms per step of the same tick unprofiled, the three kernels
-    with the most device time, K8's, K9's and K4's device ms per step (K4:
-    both kernels of its split-KV pair), and the launches per step of each
-    K4 kernel). The device figures are None when the profiler saw no
-    device time."""
-    b, bs, maxb = eng.max_batch, eng.block_size, eng.max_blocks_per_seq
-    need = -(-(ctx + steps) // bs)
-    dev = eng.device
-    tables = torch.full((b, maxb), -1, dtype=torch.int32, device=dev)
-    tables[:, :need] = torch.arange(b * need, dtype=torch.int32,
-                                    device=dev).reshape(b, need)
-    toks = torch.arange(b, device=dev) + 7
-    pos = torch.full((b,), ctx, device=dev)
-    live = torch.ones(b, dtype=torch.bool, device=dev)
-    budget = torch.full((b,), steps, dtype=torch.int32, device=dev)
+def clone_pool(pool):
+    return ({k: v.clone() for k, v in pool.items()}
+            if isinstance(pool, dict) else pool.clone())
 
-    def tick():
-        pm.decode_horizon(eng.model, eng.pool, toks, pos, tables, live,
-                          steps, budget=budget)
 
-    tick()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tick()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / steps   # unprofiled
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        tick()
-        torch.cuda.synchronize()
-    per_kernel, k4_calls = {}, dict.fromkeys(K4_KERNELS, 0)
+def pools_equal(torch, pm, a, b) -> bool:
+    return all(torch.equal(x, y)
+               for x, y in zip(pm.pool_parts(a), pm.pool_parts(b))
+               if x is not None)
+
+
+def device_kernels(torch, prof):
+    """``({kernel name: [device ms, count]}, source)`` of a trace: the
+    device events of ``key_averages()`` where they hold K4's kernels, else
+    the trace's own kernel events (which also list a replayed CUDA graph's
+    kernels)."""
+    out = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
-        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
-        for name in K4_KERNELS:
-            if name in e.key:
-                k4_calls[name] += e.count
-    total = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
-    k8 = sum(v for k, v in per_kernel.items() if "int8_matmul_kernel" in k)
-    k9 = sum(v for k, v in per_kernel.items() if "int4_matmul_kernel" in k)
-    k4 = sum(v for k, v in per_kernel.items()
-             if any(name in k for name in K4_KERNELS))
-    return ((total / steps) if total > 0 else None, wall,
-            [(k[:60], round(v / steps, 4)) for k, v in top],
-            (k8 / steps) if total > 0 else None,
-            (k9 / steps) if total > 0 else None,
-            (k4 / steps) if total > 0 else None,
-            {k: v / steps for k, v in k4_calls.items()})
+        ms, n = out.get(e.key, (0.0, 0))
+        out[e.key] = [ms + t / 1e3, n + e.count]
+    if any(name in k for k in out for name in K4_KERNELS):
+        return out, "key_averages"
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, n = out.get(e.name(), (0.0, 0))
+        out[e.name()] = [ms + e.duration_ns() / 1e6, n + 1]
+    return out, "trace kernel events"
+
+
+def decode_tick_ms(torch, pm, eng, steps: int = 8, ctx: int = 500,
+                   walls: int = 5):
+    """Two decode ticks (``steps`` steps, the engine's horizon) of all
+    ``max_batch`` lanes at position ``ctx``, on the same inputs over copies
+    of the engine's pool: the eager ``paged_model.decode_horizon`` and the
+    engine's graph tick (``HorizonGraph``: one captured step, replayed).
+    For each: device kernel ms per step from a ``torch.profiler`` trace of
+    one tick (and which part of the trace gave it), the unprofiled wall ms
+    per step (median, min and max of ``walls`` ticks, each ended by a
+    synchronise) and the same ticks' CUDA-event ms per step (median; from
+    before the tick's first launch to after its last on the card's clock:
+    events - device is the card's idle time inside the tick, wall - events
+    the host's time outside it), the idle share ``1 - device / median
+    wall``, the three kernels with the most
+    device time, K8's, K9's and K4's device ms per step (K4: both kernels
+    of its split-KV pair), and the launches per step of each K4 kernel. The
+    device figures are None when the profiler saw no device time. Checks
+    that the two ticks give identical tokens and leave identical pools."""
+    b, bs, maxb = eng.max_batch, eng.block_size, eng.max_blocks_per_seq
+    need = -(-(ctx + steps) // bs)
+    dev = eng.device
+    tables = torch.full((b, maxb), -1, dtype=torch.int32, device=dev)
+    tables[:, :need] = torch.arange(b * need, dtype=torch.int32,
+                                    device=dev).reshape(b, need)
+    toks = (torch.arange(b, device=dev) + 7).to(torch.int32)
+    pos = torch.full((b,), ctx, device=dev)
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    budget = torch.full((b,), steps, dtype=torch.int32, device=dev)
+    pool_e = clone_pool(eng.pool)
+    graph = eng.horizon_graph()
+
+    def eager():
+        return pm.decode_horizon(eng.model, pool_e, toks, pos, tables, live,
+                                 steps, budget=budget)
+
+    def replay():
+        graph.start(pos, tables, live, budget, tokens=toks)
+        return graph.run(steps)
+
+    res = {}
+    for label, tick in (("eager", eager), ("graph", replay)):
+        out = [t.clone() for t in tick()]
+        torch.cuda.synchronize()
+        times, events = [], []
+        for _ in range(walls):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0 = time.perf_counter()
+            e0.record()
+            tick()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / steps)
+            events.append(e0.elapsed_time(e1) / steps)
+        wall = statistics.median(times)
+        spread = (min(times), max(times))
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            tick()
+            torch.cuda.synchronize()
+        kern, source = device_kernels(torch, prof)
+        total = sum(ms for ms, _ in kern.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:3]
+
+        def per_step(pred):
+            ms = sum(v[0] for k, v in kern.items() if pred(k))
+            return ms / steps if total > 0 else None
+        res[label] = {
+            "out": out, "wall_ms": wall, "wall_range_ms": spread,
+            "event_ms": statistics.median(events), "source": source,
+            "device_ms": (total / steps) if total > 0 else None,
+            "idle": (1 - total / steps / wall) if total > 0 else None,
+            "top": [(k[:60], round(v[0] / steps, 4)) for k, v in top],
+            "k8_ms": per_step(lambda k: "int8_matmul_kernel" in k),
+            "k9_ms": per_step(lambda k: "int4_matmul_kernel" in k),
+            "k4_ms": per_step(lambda k: any(n in k for n in K4_KERNELS)),
+            "k4_calls": {n: sum(v[1] for k, v in kern.items() if n in k)
+                         / steps for n in K4_KERNELS}}
+    check(all(torch.equal(a, b) for a, b in zip(res["eager"]["out"],
+                                                res["graph"]["out"])),
+          "the graph tick's tokens differ from the eager tick's")
+    check(pools_equal(torch, pm, pool_e, eng.pool),
+          "the graph tick left another pool than the eager tick")
+    del pool_e
+    return res
+
+
+def tick_text(t: dict, quant: bool) -> str:
+    if t["device_ms"] is None:
+        return f"device not measured, wall {t['wall_ms']:.4f} ms"
+    lo, hi = t["wall_range_ms"]
+    txt = (f"device {t['device_ms']:.4f} ms, wall {t['wall_ms']:.4f} ms "
+           f"(min {lo:.4f}, max {hi:.4f}), events {t['event_ms']:.4f} ms, "
+           f"idle {t['idle']:.3f}, K4 {t['k4_ms']:.4f} ms (launches / step "
+           f"{t['k4_calls']})")
+    if quant:
+        txt += f", K8 {t['k8_ms']:.4f} ms, K9 {t['k9_ms']:.4f} ms"
+    return txt + f", top {t['top']} ({t['source']})"
+
+
+def serve_waves(torch, eng, waves):
+    """Every wave submitted and drained; ``({request id: tokens}, wall s)``
+    (request ids count from 0 in each engine)."""
+    outs = {}
+    t0 = time.perf_counter()
+    for wave in waves:
+        ids = [eng.submit(p) for p in wave]
+        done = eng.run()
+        outs.update({i: done[i] for i in ids})
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
 
 
 def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
-                  quant=None, pool_dtype=None, reference=None):
-    """24 requests at Qwen3-0.6B width through the engine: bf16 weights
-    and pool (phase 5), or the same seeded weights through
+                  quant=None, pool_dtype=None, reference=None,
+                  sync_rerun=False):
+    """24 requests at Qwen3-0.6B width through the engine (pipelined ticks,
+    each a replay of the captured decode step): bf16 weights and pool
+    (phase 5), or the same seeded weights through
     ``quantize_model(**quant)`` with a ``pool_dtype`` pool (phase 15).
-    ``reference``: phase 5's tokens, to report the share that agree."""
+    ``reference``: phase 5's tokens, to report the share that agree.
+    ``sync_rerun``: serve the same requests again with
+    ``pipeline_decode=False`` on the same weights; the tokens must be
+    identical."""
     dev = torch.device("cuda")
     cfg = tt.QwenConfig()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -812,14 +917,23 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
     n_params = sum(p.numel() for p in model.parameters())
     if quant is not None:
         tt.quantize_model(model, **quant)
-    eng = tt.ContinuousBatchEngine(
-        model, num_blocks=1024, block_size=16, max_batch=16,
-        max_blocks_per_seq=64, max_new_tokens=64, eos_token_id=-1,
-        decode_horizon=8, dtype=pool_dtype or torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
+
+    def engine(pipeline):
+        eng = tt.ContinuousBatchEngine(
+            model, num_blocks=1024, block_size=16, max_batch=16,
+            max_blocks_per_seq=64, max_new_tokens=64, eos_token_id=-1,
+            decode_horizon=8, dtype=pool_dtype or torch.bfloat16,
+            pipeline_decode=pipeline, device=dev)
+        t1 = time.perf_counter()
+        eng.horizon_graph()          # capture the decode step: set-up
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t1
+
+    eng, capture_s = engine(True)
     m0 = eng.metrics()
     phase(f"engine ready ({label}): {n_params} params, weights "
-          f"{m0['weight_bytes']} bytes, pool {m0['pool_bytes']} bytes "
+          f"{m0['weight_bytes']} bytes, pool {m0['pool_bytes']} bytes, "
+          f"decode step captured in {capture_s:.2f} s "
           f"({time.perf_counter() - t0:.1f} s)")
     rng = np.random.default_rng(0)
     wave1 = [rng.integers(0, cfg.vocab_size, rng.integers(300, 501)).tolist()
@@ -827,14 +941,7 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
     wave2 = [wave1[i][:256] + rng.integers(
         0, cfg.vocab_size, rng.integers(20, 61)).tolist() for i in range(8)]
     zero_launches(kernels)
-    t0 = time.perf_counter()
-    outs = {}
-    for wave in (wave1, wave2):
-        ids = [eng.submit(p) for p in wave]
-        done = eng.run()
-        outs.update({i: done[i] for i in ids})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    outs, wall = serve_waves(torch, eng, (wave1, wave2))
     launches = kernel_launches(kernels)
     m = eng.metrics()
     check(len(outs) == 24, f"{len(outs)} of 24 requests returned")
@@ -844,36 +951,126 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
     check(all(n > 0 for n in launches.values()),
           f"a kernel never ran on the main path: {launches}")
     check(m["cached_prompt_tokens"] > 0, "wave 2 never hit the prefix cache")
+    check(m["chained_ticks"] > 0, "no decode tick was chained")
     tokens = sum(len(t) for t in outs.values())
     agree = ""
     if reference is not None:
         same = sum(a == b for i in outs for a, b in zip(outs[i],
                                                         reference[i]))
         agree = f", greedy tokens agreeing with bf16 {same / tokens:.4f}"
-    dev_ms, wall_ms, top, k8_ms, k9_ms, k4_ms, k4_calls = decode_tick_ms(
-        torch, pm, eng)
-    dev_txt = "not measured" if dev_ms is None else \
-        f"{dev_ms:.4f} ms (idle {1 - dev_ms / wall_ms:.3f}), K4 ms / step " \
-        f"{k4_ms:.4f} (launches / step {k4_calls})"
-    if quant is not None and k8_ms is not None:
-        dev_txt += f", K8 {k8_ms:.4f} ms, K9 {k9_ms:.4f} ms"
-    if dev_ms is not None:   # the traced tick went through the pair
-        n_layers = cfg.num_hidden_layers
-        check(all(c == n_layers for c in k4_calls.values()),
-              f"K4's split-KV pair did not run once a layer: {k4_calls}")
-    phase(f"serving Qwen3-0.6B width {label}: {tokens} tokens in "
-          f"{wall:.3f} s = {tokens / wall:.1f} tok/s, mean TTFT "
+    tick = decode_tick_ms(torch, pm, eng)
+    n_layers = cfg.num_hidden_layers
+    for name in ("eager", "graph"):
+        t = tick[name]
+        if t["device_ms"] is None:
+            continue
+        # each traced tick went through the pair, once a layer a step
+        check(all(c == n_layers for c in t["k4_calls"].values()),
+              f"K4's split-KV pair did not run once a layer in the {name} "
+              f"tick: {t['k4_calls']}")
+        if quant is not None:
+            check(t["k8_ms"] > 0, f"K8 did not run in the {name} tick")
+            check(quant.get("bits") != 4 or t["k9_ms"] > 0,
+                  f"K9 did not run in the {name} tick")
+    phase(f"serving Qwen3-0.6B width {label} (pipelined): {tokens} tokens "
+          f"in {wall:.3f} s = {tokens / wall:.1f} tok/s, mean TTFT "
           f"{m['ttft_mean_s']:.4f} s, prefix hits {m['radix_hits']} "
           f"({m['cached_prompt_tokens']} cached prompt tokens), prefill "
-          f"calls {m['prefill_calls']}, decode ticks {m['decode_ticks']}, "
-          f"weights {m['weight_bytes']} bytes, pool {m['pool_bytes']} bytes"
-          f"{agree}; one traced tick (B=16, ctx 500, 8 steps): device "
-          f"{dev_txt} per step, wall {wall_ms:.4f} ms per step, top "
-          f"kernels {top}; launches {launches} [{card}]")
-    del eng, model
+          f"calls {m['prefill_calls']}, decode ticks {m['decode_ticks']} "
+          f"(chained {m['chained_ticks']}), weights {m['weight_bytes']} "
+          f"bytes, pool {m['pool_bytes']} bytes{agree}; launches "
+          f"{launches} [{card}]")
+    for name in ("eager", "graph"):
+        phase(f"decode tick {label} {name} (B=16, ctx 500, 8 steps), per "
+              f"step: {tick_text(tick[name], quant is not None)} [{card}]")
+    phase(f"decode tick {label}: graph and eager ticks give identical "
+          "tokens and pools")
+    res = {"launches": launches, "outs": outs, "tick": tick,
+           "tok_s": tokens / wall, "ttft_s": m["ttft_mean_s"],
+           "chained": m["chained_ticks"]}
+    del eng
     torch.cuda.empty_cache()
-    return {"launches": launches, "outs": outs, "device_ms": dev_ms,
-            "k4_ms": k4_ms}
+    if sync_rerun:
+        eng, _ = engine(False)
+        outs_s, wall_s = serve_waves(torch, eng, (wave1, wave2))
+        m_s = eng.metrics()
+        check(outs_s == outs, f"{label}: pipelined and synchronous tokens "
+              "differ")
+        check(m_s["chained_ticks"] == 0, "a synchronous engine chained")
+        phase(f"serving {label} synchronous (pipeline_decode=False): "
+              f"{tokens} tokens in {wall_s:.3f} s = {tokens / wall_s:.1f} "
+              f"tok/s, mean TTFT {m_s['ttft_mean_s']:.4f} s, decode ticks "
+              f"{m_s['decode_ticks']} (chained {m_s['chained_ticks']}); "
+              f"pipelined {tokens / wall:.1f} tok/s, mean TTFT "
+              f"{m['ttft_mean_s']:.4f} s, chained {m['chained_ticks']}; "
+              f"tokens identical [{card}]")
+        res.update(sync_tok_s=tokens / wall_s, sync_ttft_s=m_s["ttft_mean_s"])
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_graph_numerics(torch, np, tt, pm, tol=2e-3):
+    """Phase 6's 2-layer fp32 model and 520-token prompt, prefilled on the
+    card and on the CPU, then one 8-step greedy decode tick from the same
+    first token three ways: the graph tick (``HorizonGraph``) and the eager
+    ``decode_horizon`` on the card, and the eager one on the CPU. Graph vs
+    eager: identical tokens and last-step logits within 1e-5; graph vs
+    CPU: identical tokens and logits within phase 6's ``tol``."""
+    import copy
+    cfg = tt.QwenConfig(num_hidden_layers=2)
+    cpu = tt.ModelForCausalLM(cfg, device="cpu", dtype=torch.float32)
+    cpu.init(torch.Generator().manual_seed(3)).requires_grad_(False)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(5)
+    t, bs, maxb, steps = 520, 16, 64, 8
+    prompt = rng.integers(0, cfg.vocab_size, t)
+    table = np.arange(maxb, dtype=np.int32)[None]
+    pos = np.arange(t)
+    pre = [prompt[None], pos[None], (table[0][pos // bs])[None].astype(
+        np.int32), (pos % bs)[None], table, np.array([t]), np.array([t])]
+    pools, first = {}, None
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        pools[dev] = pm.init_pool(cfg, maxb, bs, dtype=torch.float32,
+                                  device=dev)
+        logits = pm.prefill(model, pools[dev], *[
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in pre])
+        if first is None:
+            first = int(logits.argmax(-1)[0])
+
+    def tick(dev):
+        return (torch.tensor([first], dtype=torch.int32, device=dev),
+                torch.tensor([t], device=dev),
+                torch.from_numpy(table).to(dev),
+                torch.ones(1, dtype=torch.bool, device=dev),
+                torch.tensor([steps], dtype=torch.int32, device=dev))
+
+    toks, p, tab, live, budget = tick("cpu")
+    ref = pm.decode_horizon(cpu, pools["cpu"], toks, p, tab, live, steps,
+                            budget=budget, return_logits=True)
+    toks, p, tab, live, budget = tick("cuda")
+    eager = pm.decode_horizon(gpu, clone_pool(pools["cuda"]), toks, p, tab,
+                              live, steps, budget=budget, return_logits=True)
+    graph = pm.HorizonGraph(gpu, pools["cuda"], 1, maxb, steps)
+    graph.start(p, tab, live, budget, tokens=toks)
+    out = list(graph.run(steps)) + [graph.logits]
+    torch.cuda.synchronize()
+    out = [x.cpu() for x in out]
+    eager = [x.cpu() for x in eager]
+    check(all(torch.equal(a, b) for a, b in zip(out[:3], eager[:3])),
+          f"graph vs eager tick tokens: {out[0]} vs {eager[0]}")
+    check(all(torch.equal(a, b) for a, b in zip(out[:3], ref[:3])),
+          f"graph tick vs CPU tokens: {out[0]} vs {ref[0]}")
+    err_e = float((out[3] - eager[3]).abs().max())
+    err_c = float((out[3] - ref[3]).abs().max())
+    check(err_e <= 1e-5, f"graph vs eager last-step logits {err_e} > 1e-5")
+    check(err_c <= tol, f"graph vs CPU last-step logits {err_c} > {tol}")
+    phase(f"graph numerics 2L fp32 prefill(520) + one {steps}-step tick: "
+          f"tokens {out[0][0].tolist()} identical graph / eager / CPU; "
+          f"last-step max |dlogit| graph vs eager {err_e} (tol 1e-5), "
+          f"graph vs CPU {err_c} (tol {tol})")
 
 
 def phase_numerics(torch, np, tt, pm, label="fp32", quant=None,
@@ -1663,10 +1860,12 @@ def main():
     del flush
     phase("5/16 end-to-end serving")
     served = phase_serving(torch, np, tt, pm,
-                           (paged_decode, flash_attention_fwd), card)
+                           (paged_decode, flash_attention_fwd), card,
+                           sync_rerun=True)
     phase("6/16 serving numerics")
     phase_numerics(torch, np, tt, pm, kernels=(paged_decode,
                                                 flash_attention_fwd))
+    phase_graph_numerics(torch, np, tt, pm)
     phase("7/16 end-to-end training")
     trained = phase_training(torch, bench, bench.KERNELS, card)
     phase("8/16 training numerics")
@@ -1699,12 +1898,12 @@ def main():
         label="int4 weights (gs 128) + int4 pool",
         quant=dict(bits=4, group_size=128), pool_dtype="int4",
         reference=served["outs"])
-    bf_ms = served["device_ms"]
+    bf_ms = served["tick"]["graph"]["device_ms"]
     for label, run in (("int8", q8), ("int4", q4)):
-        if bf_ms and run["device_ms"]:
-            phase(f"decode device ms per step {label} {run['device_ms']:.4f}"
-                  f" vs bf16 {bf_ms:.4f} (ratio "
-                  f"{run['device_ms'] / bf_ms:.4f}) [{card}]")
+        ms = run["tick"]["graph"]["device_ms"]
+        if bf_ms and ms:
+            phase(f"graph tick device ms per step {label} {ms:.4f} vs bf16 "
+                  f"{bf_ms:.4f} (ratio {ms / bf_ms:.4f}) [{card}]")
     phase("16/16 quantized numerics")
     n8 = phase_numerics(torch, np, tt, pm, "fp32 int8 weights + int8 pool",
                         quant=dict(bits=8), pool_dtype=torch.int8,
@@ -1795,6 +1994,20 @@ def main():
          "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
          "launches": q4["launches"]["paged_decode_int4"], **k4q["int4"]},
     ]}
+    # the decode tick per step, eager against graph, and phase 5's
+    # throughput pipelined against synchronous
+    record["decode_tick"] = {
+        label: {name: {k: run["tick"][name][k] for k in
+                       ("device_ms", "wall_ms", "wall_range_ms",
+                        "event_ms", "idle", "k4_ms", "k8_ms", "k9_ms",
+                        "source")}
+                for name in ("eager", "graph")}
+        for label, run in (("bf16", served), ("int8", q8), ("int4", q4))}
+    record["serving_bf16"] = {
+        "pipelined_tok_s": served["tok_s"], "sync_tok_s": served["sync_tok_s"],
+        "pipelined_ttft_s": served["ttft_s"],
+        "sync_ttft_s": served["sync_ttft_s"],
+        "chained_ticks": served["chained"], "card": card}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,19 @@ match, preemption, finished harvest) around the paged model steps:
   to the group's bucket; suffixes longer than the largest bucket are
   chunked across calls;
 - decode: all active sequences in one ``max_batch``-wide batch (dead lanes
-  masked), ``decode_horizon`` tokens per tick.
+  masked), up to ``decode_horizon`` tokens per tick, each tick one
+  ``paged_model.HorizonGraph``: on the card, replays of one captured CUDA
+  graph of the decode step; on the CPU, the same step run eagerly.
 
-Ticks are synchronous: a tick's tokens are read back once, at harvest,
-before the next tick is scheduled. Greedy by default; ``do_sample`` draws
-with engine-wide temperature/top-p/min-p from a seeded
+Ticks are pipelined (``pipeline_decode=True``, the JAX default): while a
+tick is in flight the next one is dispatched from its device carry (final
+tokens and eos flags) before the first is read back, whenever the batch is
+unchanged and every lane can take another step (``_try_chain``); otherwise
+the tick is read back at once and the next one is scheduled from the host
+(``pipeline_decode=False`` always does that). A tick's inputs go up from
+pinned staging buffers and its tokens come back into one, behind an event,
+so neither copy waits for a tick in flight. Greedy by default;
+``do_sample`` draws with engine-wide temperature/top-p/min-p from a seeded
 ``torch.Generator``.
 """
 
@@ -33,7 +41,7 @@ _UNPORTED_ENGINE_ARGS = (
     "ngram_speculation", "medusa_params", "fsms", "loras",
     "presence_penalty", "frequency_penalty", "repetition_penalty",
     "return_logprobs", "mesh", "position_offset", "kv_backend",
-    "pipeline_decode", "plus_one", "cache_aware_admission")
+    "plus_one", "cache_aware_admission")
 _UNPORTED_SUBMIT_ARGS = (
     "temperature", "top_p", "min_p", "presence_penalty", "frequency_penalty",
     "repetition_penalty", "min_tokens", "ignore_eos", "logit_bias", "seed",
@@ -87,7 +95,7 @@ class ContinuousBatchEngine:
                  min_p: float = 0.0, seed: int = 0,
                  radix_cache: bool = True,
                  max_prefill_per_tick: Optional[int] = 4,
-                 device=None, **unsupported):
+                 pipeline_decode: bool = True, device=None, **unsupported):
         """``model``: a ``models.qwen.ModelForCausalLM`` on ``device``
         (default: the model's device), float or quantized
         (``quant.quantize_model``). ``dtype`` is the pool's storage dtype:
@@ -95,7 +103,9 @@ class ContinuousBatchEngine:
         ``paged_model.init_pool``). ``radix_cache=False`` disables prefix
         caching.
         ``max_prefill_per_tick`` caps prefill calls per tick while
-        sequences are decoding (None = drain all prefills first)."""
+        sequences are decoding (None = drain all prefills first).
+        ``pipeline_decode=False`` reads every decode tick back before the
+        next one is scheduled."""
         _reject(unsupported, _UNPORTED_ENGINE_ARGS, "ContinuousBatchEngine")
         # normalised through a tensor: "cuda" and "cuda:0" name one device
         self.device = torch.empty(0, device=device if device is not None
@@ -127,6 +137,12 @@ class ContinuousBatchEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.radix_cache = bool(radix_cache)
+        self.pipeline_decode = bool(pipeline_decode)
+        self._sampling = paged_model.sampling_tensors(
+            self.device, self.temperature, self.top_p, self.min_p)
+        self._graph = None        # the decode tick, built at the first one
+        self._stages = []         # its two sets of staging buffers
+        self._inflight = None
         self.pool = paged_model.init_pool(self.cfg, num_blocks, block_size,
                                           dtype=dtype, device=self.device)
         self.waiting: deque = deque()
@@ -138,7 +154,7 @@ class ContinuousBatchEngine:
             "requests_submitted": 0, "requests_completed": 0,
             "prompt_tokens": 0, "cached_prompt_tokens": 0,
             "tokens_generated": 0, "prefill_calls": 0,
-            "decode_ticks": 0, "preemptions": 0,
+            "decode_ticks": 0, "chained_ticks": 0, "preemptions": 0,
         }
         self._ttft: List[float] = []
         self._t_start = time.monotonic()
@@ -192,8 +208,11 @@ class ContinuousBatchEngine:
 
     def abort(self, seq_id: int) -> bool:
         """Cancel a request wherever it is; its blocks are freed at once
-        (ticks are synchronous, so no device step is still writing them).
-        Returns False if the id is unknown or already finished."""
+        and a decode tick in flight drops the lane at harvest. That tick
+        may still write the lane's freed blocks, but every launch is on one
+        stream, so whatever reuses them runs after it, and no tick is
+        chained once the batch has changed. Returns False if the id is
+        unknown or already finished."""
         for q in (self.waiting, self.needs_prefill):
             for state in q:
                 if state.seq_id == seq_id:
@@ -329,8 +348,7 @@ class ContinuousBatchEngine:
     def _pick_tokens(self, logits) -> np.ndarray:
         if self.do_sample:
             toks = paged_model.sample_tokens(logits, self.generator,
-                                             self.temperature, self.top_p,
-                                             self.min_p)
+                                             *self._sampling)
         else:
             toks = torch.argmax(logits, dim=-1)
         return toks.cpu().numpy()
@@ -355,13 +373,33 @@ class ContinuousBatchEngine:
             self.counters["requests_completed"] += 1
             self.finished[state.seq_id] = state
 
+    # -- decode ticks ---------------------------------------------------------
     def _decode_batch(self):
-        """One synchronous horizon-decode tick over every active lane."""
+        """Plain decode tick, pipelined when safe: the in-flight tick's
+        device carry (final tokens and eos flags) feeds the next tick's
+        dispatch before the in-flight tick is read back, so the host's
+        harvest and bookkeeping overlap the next tick on the card."""
+        prev, self._inflight = self._inflight, None
+        if prev is not None:
+            nxt = self._try_chain(prev)   # dispatched while prev is in flight
+            self._harvest_decode(prev)
+            if nxt is not None:
+                self._inflight = nxt
+                return
+        rec = self._dispatch_decode()
+        if rec is None:
+            return
+        if rec["chainable"]:
+            self._inflight = rec          # harvested next step, overlapped
+        else:
+            self._harvest_decode(rec)
+
+    def _dispatch_decode(self):
         states = [s for s in self.active.values() if not s.finished]
         if not states:
-            return
+            return None
         b = self.max_batch
-        tokens = np.zeros(b, dtype=np.int64)
+        tokens = np.zeros(b, dtype=np.int32)
         positions = np.zeros(b, dtype=np.int64)
         live_mask = np.zeros(b, dtype=bool)
         budget = np.zeros(b, dtype=np.int32)
@@ -386,17 +424,127 @@ class ContinuousBatchEngine:
             live.append((i, state, h))
         if not live:
             self._preempt_youngest()
-            return
+            return None
         self.counters["decode_ticks"] += 1
-        eos = -1 if self.eos_token_id is None else self.eos_token_id
-        gen, _, _ = paged_model.decode_horizon(
-            self.model, self.pool, self._put(tokens), self._put(positions),
-            self._put(tables), self._put(live_mask), self.decode_horizon,
-            self.do_sample, eos=eos, generator=self.generator,
-            temperature=self.temperature, top_p=self.top_p, min_p=self.min_p,
-            budget=self._put(budget))
-        gen = gen.cpu().numpy()   # the tick's one read-back
-        for i, state, h in live:
+        rec = self._launch_tick(positions, tables, live_mask, budget, tokens)
+        # chain safety: a chained tick must never write KV into blocks the
+        # host frees at the harvest before it. Every finish the device
+        # cannot see (a second eos id) rules chaining out; the features of
+        # the JAX engine that also do (speculation, FSMs, penalties,
+        # min_tokens, logit bias, a window, stop sequences, best_of) are
+        # not ported and raise
+        rec["chainable"] = self.pipeline_decode and len(self.eos_ids) <= 1
+        rec["live"] = live
+        return rec
+
+    def _try_chain(self, prev):
+        """Dispatch the next tick from the in-flight tick's device carry
+        (no host round trip): only when the batch is unchanged and every
+        lane can take at least one more step. Returns the new in-flight
+        record, or None (the caller harvests and ticks synchronously)."""
+        if not prev["chainable"]:
+            return None
+        states = [s for s in self.active.values() if not s.finished]
+        prev_states = [s for _, s, _ in prev["live"]]
+        if len(states) != len(prev_states) or \
+                any(a is not b for a, b in zip(states, prev_states)):
+            return None             # admission/finish changed composition
+        b = self.max_batch
+        bs = self.block_size
+        positions = np.zeros(b, dtype=np.int64)
+        live_mask = np.zeros(b, dtype=bool)
+        budget = np.zeros(b, dtype=np.int32)
+        tables = np.full((b, self.max_blocks_per_seq), -1, dtype=np.int32)
+        live = []
+        for i, state, h_prev in prev["live"]:
+            # the in-flight tick is not harvested yet: a lane still alive
+            # emitted its whole grant (an eos'd lane is masked on the card
+            # by the carry's eos flags)
+            assumed_len = len(state.tokens) + h_prev
+            pos1 = assumed_len - 1
+            if assumed_len >= self.max_blocks_per_seq * bs:
+                # finishes out of blocks at the coming harvest, which frees
+                # blocks this tick would still write: drain + sync tick
+                return None
+            remaining = state.max_new - (assumed_len - state.prompt_len)
+            cap1 = self.max_blocks_per_seq * bs - pos1
+            h1 = min(self.decode_horizon, remaining, cap1)
+            if h1 < 1:
+                return None         # someone at a cap: drain + sync tick
+            if not self.kv.allocate(state, pos1 + h1):
+                return None         # pool pressure: the sync path handles it
+            positions[i] = pos1
+            live_mask[i] = True
+            budget[i] = h1
+            tables[i, :len(state.block_table)] = state.block_table
+            live.append((i, state, h1))
+        self.counters["decode_ticks"] += 1
+        self.counters["chained_ticks"] += 1
+        rec = self._launch_tick(positions, tables, live_mask, budget)
+        rec.update(chainable=True, live=live)
+        return rec
+
+    def horizon_graph(self):
+        """The decode tick and its two sets of staging buffers (pinned on
+        the card), built at the first tick."""
+        if self._graph is None:
+            b, cuda = self.max_batch, self.device.type == "cuda"
+            self._graph = paged_model.HorizonGraph(
+                self.model, self.pool, b, self.max_blocks_per_seq,
+                self.decode_horizon, do_sample=self.do_sample,
+                eos=-1 if self.eos_token_id is None else self.eos_token_id,
+                generator=self.generator, samp=self._sampling)
+
+            def host(*shape, dtype):
+                return torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+            self._stages = [{
+                "tokens": host(b, dtype=torch.int32),
+                "positions": host(b, dtype=torch.int64),
+                "tables": host(b, self.max_blocks_per_seq, dtype=torch.int32),
+                "live": host(b, dtype=torch.bool),
+                "budget": host(b, dtype=torch.int32),
+                "out": host(b, self.decode_horizon, dtype=torch.int32),
+                "event": torch.cuda.Event() if cuda else None}
+                for _ in range(2)]
+        return self._graph
+
+    def _launch_tick(self, positions, tables, live_mask, budget, tokens=None):
+        """Queue one tick: its inputs copied up from a staging set, the
+        graph's steps (``min(horizon, max budget)``, a count the host
+        knows), and its tokens copied back into the set behind its event.
+        ``tokens=None`` chains from the last tick's carry. A set is
+        refilled only once its previous tick's event has completed."""
+        graph = self.horizon_graph()
+        stage = self._stages.pop(0)
+        self._stages.append(stage)
+        if stage["event"] is not None:
+            stage["event"].synchronize()
+        for name, x in (("positions", positions), ("tables", tables),
+                        ("live", live_mask), ("budget", budget),
+                        ("tokens", tokens)):
+            if x is not None:
+                stage[name].numpy()[...] = x
+        cuda = stage["event"] is not None
+        graph.start(stage["positions"], stage["tables"], stage["live"],
+                    stage["budget"],
+                    tokens=None if tokens is None else stage["tokens"],
+                    non_blocking=cuda)
+        gen, _, _ = graph.run(int(min(self.decode_horizon, budget.max())))
+        stage["out"].copy_(gen, non_blocking=cuda)
+        if cuda:
+            stage["event"].record()
+        return {"stage": stage}
+
+    def _harvest_decode(self, rec):
+        stage = rec["stage"]
+        if stage["event"] is not None:
+            stage["event"].synchronize()   # this tick's tokens, and no later
+        gen = stage["out"].numpy().copy()
+        for i, state, h in rec["live"]:
+            if state.finished:
+                # finished at an earlier harvest (or aborted) while this
+                # stale tick was in flight; the carry kept the lane dead
+                continue
             for j in range(h):   # only granted steps have blocks
                 self._append_token(state, int(gen[i, j]))
                 if state.finished:

@@ -37,7 +37,9 @@ from ..layers.modern import swiglu_apply
 from ..layers.positional import rotate_half
 from ..ops.flash_attention import flash_attention_fwd
 from ..ops.paged_attention import gather_kv, write_kv
-from ..ops.paged_decode import paged_decode
+from ..ops.paged_decode import (paged_decode, paged_decode_int4,
+                                paged_decode_int8)
+from ..ops.quant_matmul import int4_matmul, int8_matmul
 
 
 def init_pool(config, num_blocks: int, block_size: int,
@@ -224,6 +226,15 @@ def decode(model, pool, tokens, positions, block_tables, seq_lens,
     return _head(model, hidden)
 
 
+def sampling_tensors(device, temperature=1.0, top_p=1.0, min_p=0.0):
+    """``(temperature, top_p, min_p)`` as fp32 tensors on ``device`` (scalars
+    or ``[B]``), made once: :func:`sampling_mask` turns a Python number into
+    a tensor on each call, a host-to-device copy that a captured step may
+    not make."""
+    return tuple(torch.as_tensor(x, dtype=torch.float32, device=device)
+                 for x in (temperature, top_p, min_p))
+
+
 def sampling_mask(logits, temperature, top_p, min_p=0.0) -> torch.Tensor:
     """Temperature + nucleus (top-p) + min-p masked fp32 logits.
     ``temperature``/``top_p``/``min_p``: scalars or [B] per-lane."""
@@ -244,48 +255,209 @@ def sample_tokens(logits, generator: Optional[torch.Generator], temperature,
         torch.int32)
 
 
+class _Carry:
+    """A horizon's inputs and carry, as tensors updated in place: tokens
+    ``[B]`` int32, positions ``[B]`` int64, tables ``[B, MAXB]`` int32,
+    ``alive``/``eos_dead`` ``[B]`` bool, budget ``[B]`` int32, the step
+    counter (a 0-d int64 tensor) and the output ``[B, horizon]`` int32."""
+
+    def __init__(self, b: int, maxb: int, horizon: int, device):
+        def zeros(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.tokens = zeros(b, dtype=torch.int32)
+        self.pos = zeros(b, dtype=torch.int64)
+        self.tables = torch.full((b, maxb), -1, dtype=torch.int32,
+                                 device=device)
+        self.alive = zeros(b, dtype=torch.bool)
+        self.eos_dead = zeros(b, dtype=torch.bool)
+        self.budget = zeros(b, dtype=torch.int32)
+        self.step = zeros(dtype=torch.int64)
+        self.out = zeros(b, horizon, dtype=torch.int32)
+        self.lanes = torch.arange(b, device=device)
+
+    def start(self, positions, tables, live, budget, tokens=None,
+              dead_mask=None, non_blocking: bool = False):
+        """Load a tick's inputs. ``tokens=None`` keeps the last tick's
+        final tokens, the carry of a chained tick. ``dead_mask`` (the JAX
+        argument: lanes an earlier chained tick killed by eos) is taken off
+        ``live`` and seeds ``eos_dead``, so the flag accumulates across
+        chained ticks; it may be ``self.eos_dead`` itself."""
+        nb = non_blocking
+        if tokens is not None:
+            self.tokens.copy_(tokens, non_blocking=nb)
+        self.pos.copy_(positions, non_blocking=nb)
+        self.tables.copy_(tables, non_blocking=nb)
+        self.budget.copy_(budget, non_blocking=nb)
+        self.alive.copy_(live, non_blocking=nb)
+        if dead_mask is None:
+            self.eos_dead.zero_()
+        elif dead_mask is not self.eos_dead:
+            self.eos_dead.copy_(dead_mask, non_blocking=nb)
+        self.alive &= ~self.eos_dead
+        self.step.zero_()
+        self.out.zero_()
+
+
+def _step(model, pool, c: _Carry, do_sample: bool, eos: int, generator,
+          samp) -> torch.Tensor:
+    """One step of the horizon on ``c``, in place, with nothing read back
+    to the host: a CUDA graph captures it as it is. A dead lane is a no-op:
+    its write slot is -1 (dropped), its context length 0 (K4 gives 0), its
+    token and position stay and its output is 0. Returns the step's logits
+    [B, V]."""
+    bs = pool_parts(pool)[0].shape[3]
+    maxb = c.tables.shape[1]
+    blk = c.tables[c.lanes, (c.pos // bs).clamp_max(maxb - 1)]
+    slot_blocks = torch.where(c.alive, blk, -1)
+    seq_lens = torch.where(c.alive, c.pos + 1, 0).to(torch.int32)
+    logits = decode(model, pool, c.tokens, c.pos, c.tables, seq_lens,
+                    slot_blocks, c.pos % bs)
+    if do_sample:
+        nxt = sample_tokens(logits, generator, *samp)
+    else:
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    nxt = torch.where(c.alive, nxt, c.tokens)            # freeze dead lanes
+    c.out.scatter_(1, c.step.expand(c.out.shape[0], 1),
+                   torch.where(c.alive, nxt, 0)[:, None])
+    # eos-death apart from the budget freeze: the next chained tick
+    # revives a budget-frozen lane, never an eos'd one
+    c.eos_dead |= c.alive & (nxt == eos)
+    c.alive &= (nxt != eos) & (c.step + 1 < c.budget)
+    c.pos.copy_(torch.where(c.alive, c.pos + 1, c.pos))
+    c.tokens.copy_(nxt)
+    c.step += 1
+    return logits
+
+
 @torch.no_grad()
 def decode_horizon(model, pool, tokens, positions, block_tables, live,
                    horizon: int, do_sample: bool = False, eos: int = -1,
                    generator: Optional[torch.Generator] = None,
-                   temperature=1.0, top_p=1.0, min_p=0.0, budget=None):
-    """Up to ``horizon`` decode steps per lane. The engine pre-allocates
-    blocks for ``positions + budget`` so ``table[pos // BS], pos % BS``
-    always lands on a live block.
+                   temperature=1.0, top_p=1.0, min_p=0.0, budget=None,
+                   dead_mask=None, return_logits: bool = False):
+    """Up to ``horizon`` decode steps per lane, run eagerly. The engine
+    pre-allocates blocks for ``positions + budget`` so ``table[pos // BS],
+    pos % BS`` always lands on a live block.
 
     Lanes that emit ``eos`` (-1 disables) or exhaust ``budget`` [B] go dead:
-    their writes are dropped and their token/position freeze; the loop ends
-    once every lane is dead. tokens/positions: [B] latest token and its
-    position; live: [B] bool. Returns ``(generated [B, horizon] int32,
-    final_tokens [B] int32, eos_dead [B] bool)`` (dead entries are 0)."""
-    b = tokens.shape[0]
-    bs = pool_parts(pool)[0].shape[3]
-    maxb = block_tables.shape[1]
-    dev = tokens.device
-    out = torch.zeros((b, horizon), dtype=torch.int32, device=dev)
+    their writes are dropped and their token/position freeze. The loop runs
+    all ``horizon`` steps and reads nothing back: a dead lane's step
+    changes nothing, so the tokens are those of the JAX ``while_loop``,
+    which stops once every lane is dead (the engine's tick runs
+    ``min(horizon, max budget)`` steps, a count its host knows).
+    tokens/positions: [B] latest token and its position; live: [B] bool;
+    ``dead_mask`` [B] bool: lanes an earlier chained tick killed by eos
+    (JAX semantics: taken off ``live``, and seeding ``eos_dead``). Returns
+    ``(generated [B, horizon] int32, final_tokens [B] int32, eos_dead [B]
+    bool)`` (dead entries are 0), and with ``return_logits`` the last
+    step's logits; ``(final_tokens, eos_dead)`` is the carry a chained tick
+    starts from."""
+    b, maxb = block_tables.shape
+    c = _Carry(b, maxb, horizon, tokens.device)
     if budget is None:
-        budget = torch.full((b,), horizon, dtype=torch.int32, device=dev)
-    toks = tokens.to(torch.int32)
-    pos = positions.to(torch.int64)
-    alive = live.clone()
-    eos_dead = torch.zeros_like(alive)
-    lanes = torch.arange(b, device=dev)
-    for i in range(horizon):
-        if not bool(alive.any()):
-            break
-        blk = block_tables[lanes, (pos // bs).clamp_max(maxb - 1)]
-        slot_blocks = torch.where(alive, blk, -1)
-        seq_lens = torch.where(alive, pos + 1, 0).to(torch.int32)
-        logits = decode(model, pool, toks, pos, block_tables, seq_lens,
-                        slot_blocks, pos % bs)
-        if do_sample:
-            nxt = sample_tokens(logits, generator, temperature, top_p, min_p)
-        else:
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(alive, nxt, toks)
-        out[:, i] = torch.where(alive, nxt, 0)
-        eos_dead |= alive & (nxt == eos)
-        alive = alive & (nxt != eos) & (i + 1 < budget)
-        pos = torch.where(alive, pos + 1, pos)
-        toks = nxt
-    return out, toks, eos_dead
+        budget = torch.full((b,), horizon, dtype=torch.int32)
+    c.start(positions, block_tables, live, budget, tokens=tokens,
+            dead_mask=dead_mask)
+    samp = sampling_tensors(tokens.device, temperature, top_p, min_p)
+    logits = None
+    for _ in range(horizon):
+        logits = _step(model, pool, c, do_sample, eos, generator, samp)
+    if return_logits:
+        return c.out, c.tokens, c.eos_dead, logits
+    return c.out, c.tokens, c.eos_dead
+
+
+# the kernels' wrappers that a decode step may call, and their counters
+_COUNTED = (paged_decode, paged_decode_int8, paged_decode_int4, int8_matmul,
+            int4_matmul)
+
+
+def _launch_counts() -> dict:
+    return {(fn, name): getattr(fn, name) for fn in _COUNTED
+            for name in ("launches", "tc_launches") if hasattr(fn, name)}
+
+
+class HorizonGraph:
+    """The engine's decode tick: :func:`decode_horizon`'s step over static
+    buffers (a :class:`_Carry`) for ``batch`` lanes, ``max_blocks`` table
+    entries and ``horizon`` steps, bound to one ``pool`` (updated in place,
+    never reallocated, so the graph may hold its pointers).
+
+    On a CUDA device the step is captured once as a CUDA graph at
+    construction and a tick replays it ``n`` times: one launch of the graph
+    a step, and no host work between steps. Before the capture the step
+    runs once eagerly on the capture stream with every lane dead (its
+    writes change nothing), so that whatever a first call creates exists
+    when the capture starts: the kernels' library and their shared-memory
+    attributes, cuBLAS's handle and workspace of that stream, the split-K
+    workspace that ``ops.quant_matmul`` keys by (device, stream). The
+    generator's state is registered with the graph, so each replay draws
+    fresh numbers from it, and restored after the warm-up. A failed capture
+    raises; there is no eager fallback on the card. On the CPU there is no
+    graph, and :meth:`run` calls the same step eagerly.
+
+    The kernels' wrappers count launches in Python, which a replay never
+    calls: the counts the capture added are taken back and added once per
+    replay instead (``per_replay``). ``logits`` holds the last step's
+    logits (the graph's output buffer on the card)."""
+
+    def __init__(self, model, pool, batch: int, max_blocks: int,
+                 horizon: int, *, do_sample: bool = False, eos: int = -1,
+                 generator: Optional[torch.Generator] = None, samp=None):
+        device = pool_parts(pool)[0].device
+        self.model, self.pool = model, pool
+        self.do_sample, self.eos, self.generator = do_sample, eos, generator
+        self.samp = samp if samp is not None else sampling_tensors(device)
+        self.c = _Carry(batch, max_blocks, horizon, device)
+        self.graph = None
+        self.per_replay = {}
+        self.logits = None
+        if device.type == "cuda":
+            self._capture(device)
+
+    @torch.no_grad()
+    def _step(self):
+        self.logits = _step(self.model, self.pool, self.c, self.do_sample,
+                            self.eos, self.generator, self.samp)
+
+    def _capture(self, device):
+        gen_state = None if self.generator is None else \
+            self.generator.get_state()
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            self._step()
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = _launch_counts()
+        with torch.cuda.graph(graph, stream=stream):
+            self._step()
+        for (fn, name), n in before.items():
+            self.per_replay[(fn, name)] = getattr(fn, name) - n
+            setattr(fn, name, n)          # the capture launched nothing
+        torch.cuda.current_stream(device).wait_stream(stream)
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+        self.graph = graph
+
+    def start(self, positions, tables, live, budget, tokens=None,
+              non_blocking: bool = False):
+        """Load a tick (:meth:`_Carry.start`). ``tokens=None`` chains the
+        tick from the last one's carry: its final tokens, and its
+        ``eos_dead`` as the dead mask."""
+        self.c.start(positions, tables, live, budget, tokens=tokens,
+                     dead_mask=None if tokens is not None else self.c.eos_dead,
+                     non_blocking=non_blocking)
+
+    def run(self, n: int):
+        """``n`` steps; returns ``(generated, final_tokens, eos_dead)``,
+        the buffers themselves (the next tick overwrites them)."""
+        for _ in range(n):
+            if self.graph is None:
+                self._step()
+                continue
+            self.graph.replay()
+            for (fn, name), k in self.per_replay.items():
+                setattr(fn, name, getattr(fn, name) + k)
+        return self.c.out, self.c.tokens, self.c.eos_dead
