@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, decoder-training, encoder-family and
-quantized-serving paths once on one NVIDIA card.
+"""Drive the PyTorch port's serving, decoder-training, encoder-family,
+quantized-serving and static-cache generation paths once on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -20,6 +21,10 @@ and exits non-zero):
    its time, bound and share;
 3. K1 flash forward against its plain version at the prefill and training
    shapes and the contract's edges (ragged, causal, fully masked rows);
+   then at static-cache generation's shapes (``K1_GEN_CASES``: a
+   128-token prefill against a 192-slot buffer, decode steps at Lq=1;
+   bf16 and fp32, groups 2 and 4), each beside SDPA and the ``"xla"``
+   route;
 4. K2/K3 flash backward against their plain versions at the training
    shapes and the contract's edges (the bf16 bound adds the tensor-core
    kernels' rounding of P and dS, ``flash_bwd_rounding``), with their
@@ -56,7 +61,9 @@ and exits non-zero):
     split, kn and nk; bf16 nk fold on the tensor cores) and K10 (stream
     and noscale; bf16 nk on the tensor cores) against their plain versions
     at Qwen3-0.6B's decode shapes, the tied head, a prefill shape and
-    ragged M, bf16 and fp32, each with its route and, on the tensor cores,
+    ragged M, bf16 and fp32, and at the shapes phase 17 gives K8 and K9
+    (M=8 decode steps, M=1,024 prefill), each with its route and, on the
+    tensor cores,
     tile, splits and grid; the split-K reduction's determinism for int8
     and int4; then the K10 path (``quant_bench.int4_attribution``);
 14. K4's int8 and int4 pool variants against their plain versions at
@@ -71,13 +78,26 @@ and exits non-zero):
     the quantized graph), and timed unprofiled for its wall per step
     (``decode_tick_ms``);
 16. quantized numerics: phase 6's method for int8 + int8 pool, int4 +
-    int4 pool and W8A8, quantized on the CPU and copied to the card.
+    int4 pool and W8A8, quantized on the CPU and copied to the card;
+17. end-to-end static-cache generation at Qwen3-0.6B width (random bf16
+    weights from a seed; B=8, 128-token prompts, 64 greedy new tokens):
+    ``generate_hf`` and ``generate(use_cache=True)``, token for token
+    equal, then ``generate_hf`` with int8 and int4 (gs 128) weights; K1
+    once a layer a call, K8 and K9 where quantized; tokens/s, and from
+    ``generate_hf`` runs of 8 steps split at the prefill (``gen_step_ms``):
+    prefill ms, wall per step and, traced, device ms per step, idle share
+    and K1's, K8's and K9's ms;
+18. generation numerics: 2 layers fp32, card against CPU: the Qwen width's
+    cached logits, cached and uncached ``generate``, and
+    ``DecoderModel.generate`` (a left-padded batch on the ``"flash"``
+    route on both devices).
 
-Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15) zeroes its
+Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15, 17) zeroes its
 kernels' launch counts just before it and reads the counts just after; a
 replay of the captured decode step adds what its capture counted. The line
 before the last holds the kernels' JSON record, with the decode ticks'
-figures and phase 5's tokens/s pipelined and synchronous; the last line is
+figures, phase 5's tokens/s pipelined and synchronous, K1's generation
+cases and phase 17's figures (``generation``); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -759,11 +779,11 @@ def pools_equal(torch, pm, a, b) -> bool:
                if x is not None)
 
 
-def device_kernels(torch, prof):
+def device_kernels(torch, prof, expect=K4_KERNELS):
     """``({kernel name: [device ms, count]}, source)`` of a trace: the
-    device events of ``key_averages()`` where they hold K4's kernels, else
-    the trace's own kernel events (which also list a replayed CUDA graph's
-    kernels)."""
+    device events of ``key_averages()`` where they hold a kernel named in
+    ``expect``, else the trace's own kernel events (which also list a
+    replayed CUDA graph's kernels)."""
     out = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -773,7 +793,7 @@ def device_kernels(torch, prof):
             t = getattr(e, "self_cuda_time_total", 0)
         ms, n = out.get(e.key, (0.0, 0))
         out[e.key] = [ms + t / 1e3, n + e.count]
-    if any(name in k for k in out for name in K4_KERNELS):
+    if any(name in k for k in out for name in expect):
         return out, "key_averages"
     out = {}
     for e in prof.profiler.kineto_results.events():
@@ -1580,13 +1600,21 @@ def qm_atol(ref, dtype) -> float:
 QWEN3_LINEARS = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
                  (3072, 1024))
 QWEN3_HEAD = (1024, 151936)
+# static-cache generation at full width (phase 17): batch, prompt, new
+# tokens, and the decode steps traced for the device time
+GEN_B, GEN_PROMPT, GEN_NEW, GEN_TRACE_STEPS = 8, 128, 64, 8
 
 
 def phase_quant_matmul(torch, qm, qb, flush, card):
     """K8 (kn and nk) at decode M=16 over every Qwen3-0.6B linear shape and
     the tied head, at prefill M=2,048 for 1024->3072, and at ragged M (1,
     7, 17, 100) and N (1,000); K9 fold and split (kn and nk, gs=128) at the
-    linear shapes, fold at the prefill shape and the ragged M; K10 stream
+    linear shapes, fold at the prefill shape and the ragged M; bf16 K8 (kn
+    and nk) and K9 fold (kn and nk) at phase 17's shapes: its decode step
+    (M=``GEN_B``: every linear, and the tied head for K8) and its prefill
+    (M=``GEN_B * GEN_PROMPT``: every linear; at k/v, o and down the
+    64-row tiles would not fill the SMs and the 16 x 32 plan takes them);
+    K10 stream
     and noscale at M=8, K=N=2,048; bf16 and fp32, each against its plain
     version, with the dense bf16 ``torch.matmul`` (and
     ``torch._weight_int8pack_mm`` where it runs) as library times. Each
@@ -1618,6 +1646,19 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
         (bf, ("fold", "nk")), (bf, ("fold", "kn")))]
     cases += [("K9", "ragged", m, 1024, 1000, bf, ("fold", "nk"))
               for m in (1, 7, 17, 100)]
+    # phase 17's generation shapes, bf16 as it runs them
+    gen_pre = GEN_B * GEN_PROMPT
+    for k, n in QWEN3_LINEARS + (QWEN3_HEAD,):
+        cases += [("K8", "gen-decode", GEN_B, k, n, bf, lay)
+                  for lay in ("kn", "nk")]
+        if (k, n) != QWEN3_HEAD:
+            cases += [("K9", "gen-decode", GEN_B, k, n, bf, ("fold", lay))
+                      for lay in ("kn", "nk")]
+    for k, n in QWEN3_LINEARS:
+        cases += [("K8", "gen-prefill", gen_pre, k, n, bf, lay)
+                  for lay in ("kn", "nk")]
+        cases += [("K9", "gen-prefill", gen_pre, k, n, bf, ("fold", lay))
+                  for lay in ("kn", "nk")]
     cases += [("K10", "attribution", 8, 2048, 2048, dt, (mode, lay))
               for dt, lay in ((bf, "nk"), (f32, "nk"), (bf, "kn"))
               for mode in ("stream", "noscale")]
@@ -1792,6 +1833,363 @@ def phase_quant_decode(torch, pdm, pa, flush, card):
     return main
 
 
+# K1 at the shapes of static-cache generation (D=128): (label, B, H,
+# H_kv, Lq, Lk, start position). The decode case at Lk=197 has bias rows
+# that are not 16-byte aligned, so a bf16 call takes ``_aligned_bias``'s
+# copy, as a generation step does when prompt + new is not a multiple of 4.
+K1_GEN_CASES = (
+    ("static prefill Lq=128 Lk=192 G=2", 8, 16, 8, 128, 192, 0),
+    ("static prefill Lq=128 Lk=192 G=4", 8, 16, 4, 128, 192, 0),
+    ("decode Lq=1 Lk=192 G=2", 8, 16, 8, 1, 192, 150),
+    ("decode Lq=1 Lk=192 G=4", 8, 16, 4, 1, 192, 150),
+    ("decode Lq=1 Lk=197 G=2", 8, 16, 8, 1, 197, 150),
+)
+
+
+def phase_flash_generation(torch, fa, masks, attn, flush, card,
+                           dev="cuda"):
+    """K1 at the shapes static-cache generation gives it (``K1_GEN_CASES``,
+    bf16 and fp32): the prefill of a 128-token prompt against the whole
+    192-slot buffer under ``causal_mask_static_kv``'s bias ``[B, 1, Lq,
+    Lk]``, and a decode step at Lq=1 with its bias ``[B, 1, 1, Lk]``, each
+    against its plain version at phase 3's bounds, and timed beside SDPA
+    on the same operands and mask and beside the port's ``"xla"`` route
+    (``_sdpa_xla`` after ``repeat_kv``). Returns one record a case."""
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    recs = []
+    for label, b, h, h_kv, lq, lk, start in K1_GEN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            d = 128
+            q = torch.randn(b, h, lq, d, device=dev, generator=g).to(dtype)
+            k = torch.randn(b, h_kv, lk, d, device=dev, generator=g).to(dtype)
+            v = torch.randn(b, h_kv, lk, d, device=dev, generator=g).to(dtype)
+            # a prefill passes the all-valid prompt mask, a step none
+            am = (torch.ones(b, start + lq, dtype=torch.int32, device=dev)
+                  if lq > 1 else None)
+            bias = masks.causal_mask_static_kv(lq, lk, start, am,
+                                               batch_size=b, device=dev)
+            out, lse = fa.flash_attention_fwd(q, k, v, bias)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_attention_fwd_ref(q, k, v, bias)
+            err = float((out.float() - ref.float()).abs().max())
+            lse_err = float((lse - ref_lse).abs().max())
+            atol = (FP32_ATOL if dtype == torch.float32
+                    else attn_bf16_atol(ref, v))
+            check(err <= atol, f"K1 {label} {dtype}: max err {err} > {atol}")
+            check(lse_err <= 1e-3, f"K1 {label}: lse err {lse_err}")
+            rep = h // h_kv
+            mask = sdpa_mask(torch, bias, lq, lk, False, None, dtype)
+            times = {
+                "ms": lambda: fa.flash_attention_fwd(q, k, v, bias),
+                "plain_ms": lambda: fa.flash_attention_fwd_ref(q, k, v,
+                                                               bias),
+                "library_ms": lambda: sdpa(q, k, v, attn_mask=mask,
+                                           enable_gqa=True),
+                "xla_route_ms": lambda: attn._sdpa_xla(
+                    q, attn.repeat_kv(k, rep), attn.repeat_kv(v, rep),
+                    bias),
+            }
+            rec = {"label": label, "dtype": str(dtype)[6:], "lq": lq,
+                   "lk": lk, "group": rep, "max_abs_err": err}
+            rec.update({name: cuda_ms(fn, flush, iters=10)
+                        for name, fn in times.items()})
+            flops = 4 * d * live_pairs(torch, bias, b, h, lq, lk)
+            rec.update(bound(flops, nbytes(q, k, v, bias, out, lse), dtype))
+            recs.append(rec)
+            phase(f"K1 flash_fwd generation {label} {rec['dtype']}: "
+                  f"max_abs_err={err} (atol {atol}) kernel {rec['ms']:.4f} "
+                  f"ms ({achieved(flops, rec['ms'], rec)}), plain "
+                  f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, "
+                  f"xla route {rec['xla_route_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms [{card}]")
+    return recs
+
+
+def gen_model(torch, tt, cfg, quant=None, dev="cuda"):
+    """Qwen ``cfg`` in bf16 on ``dev`` from seeded random weights (the
+    same weights on every call), through ``quantize_model(**quant)``."""
+    dev = torch.device(dev)
+    model = tt.ModelForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    if quant is not None:
+        tt.quantize_model(model, **quant)
+    return model
+
+
+def gen_step_ms(torch, tt, model, ids, steps: int = GEN_TRACE_STEPS,
+                walls: int = 3):
+    """One greedy ``generate_hf(max_new_tokens=steps + 1)`` on ``ids``,
+    its prefill (the model's first call) and its ``steps`` decode steps
+    (each a model call and the emit of its token; the prefill's own emit
+    falls in the steps) measured apart: hooks on the model synchronise
+    before and after its first call. Unprofiled (median of ``walls``
+    runs): the prefill's ms between those synchronises, and the wall ms
+    per step from the second to the synchronise after ``generate_hf``
+    returns. Then one run under two ``torch.profiler`` traces, one of the
+    prefill and one from its end to the end of the run: the prefill's
+    device ms, the steps' device ms per step, the idle share ``1 - device
+    / wall``, K1's, K8's and K9's device ms per step and the three kernels
+    with the most time."""
+    at = {}
+
+    def pre(module, args):
+        at["calls"] = at.get("calls", 0) + 1
+        if at["calls"] == 1:
+            at["before"]()
+
+    def post(module, args, out):
+        if at["calls"] == 1:
+            at["after"]()
+
+    def run(before, after):
+        at.update(calls=0, before=before, after=after)
+        tt.generate_hf(model, ids, max_new_tokens=steps + 1,
+                       eos_token_id=-1)
+        torch.cuda.synchronize()
+
+    def mark(name):
+        def fn():
+            torch.cuda.synchronize()
+            at[name] = time.perf_counter()
+        return fn
+
+    hooks = (model.register_forward_pre_hook(pre),
+             model.register_forward_hook(post))
+    try:
+        pre_ms, times = [], []
+        for _ in range(walls):
+            run(mark("t0"), mark("t1"))
+            t2 = time.perf_counter()
+            pre_ms.append((at["t1"] - at["t0"]) * 1e3)
+            times.append((t2 - at["t1"]) * 1e3 / steps)
+        act = torch.profiler.ProfilerActivity
+        traces = [torch.profiler.profile(activities=[act.CPU, act.CUDA])
+                  for _ in "ab"]
+
+        def start():
+            torch.cuda.synchronize()
+            traces[0].start()
+
+        def switch():
+            torch.cuda.synchronize()
+            traces[0].stop()
+            traces[1].start()
+        run(start, switch)
+        traces[1].stop()
+    finally:
+        for h in hooks:
+            h.remove()
+    pre_kern, _ = device_kernels(torch, traces[0],
+                                 expect=("flash_fwd_kernel",))
+    kern, source = device_kernels(torch, traces[1],
+                                  expect=("flash_fwd_kernel",))
+    total = sum(ms for ms, _ in kern.values())
+    pre_dev = sum(ms for ms, _ in pre_kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:3]
+    wall = statistics.median(times)
+
+    def per_step(name):
+        ms = sum(v[0] for k, v in kern.items() if name in k)
+        return ms / steps if total > 0 else None
+    return {"prefill_ms": statistics.median(pre_ms),
+            "prefill_device_ms": pre_dev if pre_dev > 0 else None,
+            "step_wall_ms": wall,
+            "step_wall_range_ms": (min(times), max(times)),
+            "step_device_ms": total / steps if total > 0 else None,
+            "idle": (1 - total / steps / wall) if total > 0 else None,
+            "k1_ms": per_step("flash_fwd_kernel"),
+            "k8_ms": per_step("int8_matmul_kernel"),
+            "k9_ms": per_step("int4_matmul_kernel"),
+            "top": [(k[:60], round(v[0] / steps, 4)) for k, v in top],
+            "source": source}
+
+
+def phase_generation(torch, np, tt, fa, qm, card, dev="cuda"):
+    """Static-cache generation at Qwen3-0.6B width (``QwenConfig()``, 28
+    layers, tied 151,936 head), seeded random bf16 weights: ``GEN_B``
+    all-valid prompts of ``GEN_PROMPT`` tokens, ``GEN_NEW`` greedy new
+    tokens, eos -1 (never fires), through ``generate_hf`` and, in bf16,
+    ``generate(use_cache=True)`` too (identical tokens required); then the
+    same weights through ``quantize_model`` int8 and int4 (gs 128),
+    through ``generate_hf``. Each run's launch counts of K1, K8 and K9
+    are zeroed just before it and read just after: K1 must run once a
+    layer a model call, K8 in both quantized runs (int4 keeps an int8 tied
+    head), K9 in the int4 run. Each model also gets ``gen_step_ms``."""
+    cfg = tt.QwenConfig()
+    dev = torch.device(dev)
+    rng = np.random.default_rng(21)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (GEN_B, GEN_PROMPT))).to(dev)
+    kernels = (fa.flash_attention_fwd, qm.int8_matmul, qm.int4_matmul)
+    calls = cfg.num_hidden_layers * GEN_NEW     # a prefill + GEN_NEW-1 steps
+    res, ref = {}, None
+    for label, quant in (("bf16", None), ("int8", dict(bits=8)),
+                         ("int4", dict(bits=4, group_size=128))):
+        model = gen_model(torch, tt, cfg, quant, dev)
+        # first calls (cuBLAS handles, the split-K workspaces) out of the
+        # timed run
+        tt.generate_hf(model, ids, max_new_tokens=2, eos_token_id=-1)
+        torch.cuda.synchronize()
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        toks = tt.generate_hf(model, ids, max_new_tokens=GEN_NEW,
+                              eos_token_id=-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches(kernels)
+        check(tuple(toks.shape) == (GEN_B, GEN_PROMPT + GEN_NEW)
+              and torch.equal(toks[:, :GEN_PROMPT].long(), ids)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"generation {label}: bad token buffer")
+        check(launches["flash_attention_fwd"] == calls,
+              f"generation {label}: K1 ran {launches['flash_attention_fwd']}"
+              f" times, not once a layer a call ({calls})")
+        if quant is not None:
+            check(launches["int8_matmul_kernel_tc"] > 0,
+                  f"generation {label}: K8 never ran: {launches}")
+        if label == "int4":
+            check(launches["int4_matmul_kernel_tc"] > 0,
+                  f"generation {label}: K9 never ran: {launches}")
+        rec = {"tok_s": GEN_B * GEN_NEW / wall, "wall_s": wall,
+               "launches": launches}
+        if ref is None:
+            zero_launches(kernels)
+            t0 = time.perf_counter()
+            toks_g = tt.generate(model, ids, max_new_tokens=GEN_NEW,
+                                 use_cache=True)
+            torch.cuda.synchronize()
+            rec["generate_tok_s"] = GEN_B * GEN_NEW / (
+                time.perf_counter() - t0)
+            rec["generate_launches"] = kernel_launches(kernels)
+            check(torch.equal(toks_g.to(torch.int32), toks),
+                  "generate and generate_hf give different tokens")
+            check(rec["generate_launches"]["flash_attention_fwd"] == calls,
+                  f"generate: K1 launches {rec['generate_launches']}")
+            ref = toks
+        rec["agree_bf16"] = float((toks[:, GEN_PROMPT:]
+                                   == ref[:, GEN_PROMPT:]).float().mean())
+        rec.update(gen_step_ms(torch, tt, model, ids))
+        rec["step_wall_from_run_ms"] = (wall * 1e3 - rec["prefill_ms"]) / (
+            GEN_NEW - 1)
+        res[label] = rec
+        dev_txt = ("device not measured" if rec["step_device_ms"] is None
+                   else f"device per step {rec['step_device_ms']:.4f} ms "
+                   f"(K1 {rec['k1_ms']:.4f}, K8 {rec['k8_ms']:.4f}, K9 "
+                   f"{rec['k9_ms']:.4f}), idle {rec['idle']:.3f}, prefill "
+                   f"device {rec['prefill_device_ms']} ms, top "
+                   f"{rec['top']} ({rec['source']})")
+        extra = ("" if label != "bf16" else
+                 f"; generate(use_cache=True) {rec['generate_tok_s']:.1f} "
+                 "tok/s, tokens identical to generate_hf")
+        phase(f"generation Qwen3-0.6B width {label} B={GEN_B} prompt "
+              f"{GEN_PROMPT} new {GEN_NEW}: generate_hf {rec['tok_s']:.1f} "
+              f"tok/s ({wall:.3f} s), prefill {rec['prefill_ms']:.3f} ms, "
+              f"wall per step {rec['step_wall_ms']:.4f} ms (generate_hf of "
+              f"{GEN_TRACE_STEPS} steps, range {rec['step_wall_range_ms']}; "
+              f"{rec['step_wall_from_run_ms']:.4f} ms over the run), "
+              f"{dev_txt}; greedy tokens agreeing with bf16 "
+              f"{rec['agree_bf16']:.4f}; launches {launches}{extra} [{card}]")
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_generation_numerics(torch, np, tt, fa, attn, tol=2e-3,
+                              dev="cuda"):
+    """2 layers, fp32, card against CPU: the Qwen width (phase 6's model)
+    prefilling a 64-token prompt (B=2) and 8 cached steps teacher-forced
+    along the CPU's greedy tokens, logits within phase 6's ``tol``; cached
+    and uncached ``generate`` on the card token-exact, and equal to the
+    CPU's; ``DecoderModel.generate`` (rope + GQA, absolute + MHA; hidden
+    256, D=64) cached and uncached, card against CPU token-exact; and a
+    left-padded batch, whose pad queries are fully masked in the cached
+    prefill, on the ``"flash"`` route on both devices (K1's contract on
+    the card, its plain version on the CPU: such rows give 0, where the
+    CPU's ``"xla"`` route gives the mean of V). K1 must run on the card."""
+    import copy
+    dev = torch.device(dev)
+    cfg = tt.QwenConfig(num_hidden_layers=2)
+    cpu = tt.ModelForCausalLM(cfg, device="cpu")
+    cpu.init(torch.Generator().manual_seed(3)).requires_grad_(False)
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(8)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    zero_launches((fa.flash_attention_fwd,))
+    logits, cpu_tokens = {}, None
+    with torch.no_grad():
+        for side, model in (("cpu", cpu), ("card", gpu)):
+            d = model.device
+            cache = model.init_cache(batch_size=2, max_len=72)
+            out = model(ids.to(d), cache=cache, start_pos=0)
+            steps = [out.logits.float().cpu()]
+            for i in range(8):
+                tok = (steps[-1][:, -1].argmax(-1) if side == "cpu"
+                       else cpu_tokens[i])
+                out = model(tok[:, None].to(d), cache=cache,
+                            start_pos=64 + i)
+                steps.append(out.logits.float().cpu())
+            logits[side] = steps
+            if side == "cpu":
+                cpu_tokens = [s[:, -1].argmax(-1) for s in steps[:-1]]
+    errs = [float((a - b).abs().max())
+            for a, b in zip(logits["cpu"], logits["card"])]
+    check(max(errs) <= tol, f"generation numerics: card vs CPU logits "
+          f"{max(errs)} > {tol}")
+    gen = {name: tt.generate(m, ids, max_new_tokens=8, use_cache=c).cpu()
+           for name, m, c in (("card cached", gpu, True),
+                              ("card uncached", gpu, False),
+                              ("cpu cached", cpu, True))}
+    check(torch.equal(gen["card cached"], gen["card uncached"]),
+          f"card: cached and uncached generate differ: {gen}")
+    check(torch.equal(gen["card cached"], gen["cpu cached"]),
+          f"generate card vs CPU: {gen}")
+    ecfg = tt.EncoderConfig(hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, num_hidden_layers=2,
+                            vocab_size=1024, max_position_embeddings=128,
+                            intermediate_size=1024, hidden_dropout_prob=0.0)
+    x = torch.from_numpy(rng.integers(2, 1024, (3, 20)))
+    mask = torch.ones_like(x)
+    mask[0, :5] = 0
+    xp = x.clone()
+    xp[0, :5] = ecfg.pad_token_id
+    dec_tokens = {}
+    for pe, at in (("rope", "gqa"), ("absolute", None)):
+        dcpu = tt.DecoderModel(ecfg, pe, at, device="cpu")
+        dcpu.init(torch.Generator().manual_seed(4)).requires_grad_(False)
+        dgpu = copy.deepcopy(dcpu).to(dev)
+        for use_cache in (True, False):
+            a = dgpu.generate(x.to(dev), max_len=10,
+                              use_cache=use_cache).cpu()
+            b = dcpu.generate(x, max_len=10, use_cache=use_cache)
+            check(torch.equal(a, b), f"DecoderModel.generate {pe}/{at} "
+                  f"cache={use_cache}: card {a} vs CPU {b}")
+            dec_tokens[f"{pe}/{at} cache={use_cache}"] = a[:, 20:].tolist()
+        attn.set_sdpa_impl("flash")
+        try:
+            for use_cache in (True, False):
+                a = dgpu.generate(xp.to(dev), mask.to(dev), max_len=10,
+                                  use_cache=use_cache).cpu()
+                b = dcpu.generate(xp, mask, max_len=10, use_cache=use_cache)
+                check(torch.equal(a, b), f"DecoderModel.generate {pe}/{at} "
+                      f"left-padded, flash route, cache={use_cache}: card "
+                      f"{a} vs CPU {b}")
+        finally:
+            attn.set_sdpa_impl("auto")
+    launches = fa.flash_attention_fwd.launches
+    check(launches > 0, "generation numerics: K1 never ran on the card")
+    phase(f"generation numerics 2L fp32: Qwen width prefill(64) + 8 cached "
+          f"steps, per-call max |dlogit| card vs CPU {errs} (tol {tol}); "
+          f"generate cached = uncached on the card = CPU: "
+          f"{gen['card cached'][:, 64:].tolist()}; DecoderModel.generate "
+          f"card = CPU (rope/gqa, absolute/mha; cached, uncached; a "
+          f"left-padded batch on the flash route): {dec_tokens}; K1 "
+          f"launches {launches}")
+    return launches
+
+
 def main():
     check((ROOT / "vyomai_tpu_torch" / "csrc").is_dir(),
           "run from a checkout: vyomai_tpu_torch/ not found beside this "
@@ -1800,7 +2198,7 @@ def main():
     import numpy as np
     import torch
 
-    phase("1/16 device and set-up")
+    phase("1/18 device and set-up")
     check(torch.cuda.is_available(), "no CUDA device: this script runs the "
           "port on an NVIDIA card and does not fall back to the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1818,6 +2216,8 @@ def main():
     from vyomai_tpu_torch import bench
     from vyomai_tpu_torch import quant_bench as qb
     from vyomai_tpu_torch import encoder_bench as eb
+    from vyomai_tpu_torch.core import masks
+    from vyomai_tpu_torch.layers import attention as attn
     from vyomai_tpu_torch.ops import _build
     from vyomai_tpu_torch.ops import flash_attention as fa
     from vyomai_tpu_torch.ops.flash_attention import (
@@ -1850,43 +2250,44 @@ def main():
           f"K4's kernels are not the split-KV pair: {sorted(k4_res)}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    phase("2/16 K4 paged decode vs plain")
+    phase("2/18 K4 paged decode vs plain")
     k4 = phase_decode(torch, pdm, flush, card)
-    phase("3/16 K1 flash forward vs plain")
+    phase("3/18 K1 flash forward vs plain")
     k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
                      flush, card)
-    phase("4/16 K2/K3 flash backward vs plain")
+    k1_gen = phase_flash_generation(torch, fa, masks, attn, flush, card)
+    phase("4/18 K2/K3 flash backward vs plain")
     k23 = phase_flash_bwd(torch, fa, flush, card)
     del flush
-    phase("5/16 end-to-end serving")
+    phase("5/18 end-to-end serving")
     served = phase_serving(torch, np, tt, pm,
                            (paged_decode, flash_attention_fwd), card,
                            sync_rerun=True)
-    phase("6/16 serving numerics")
+    phase("6/18 serving numerics")
     phase_numerics(torch, np, tt, pm, kernels=(paged_decode,
                                                 flash_attention_fwd))
     phase_graph_numerics(torch, np, tt, pm)
-    phase("7/16 end-to-end training")
+    phase("7/18 end-to-end training")
     trained = phase_training(torch, bench, bench.KERNELS, card)
-    phase("8/16 training numerics")
+    phase("8/18 training numerics")
     phase_train_numerics(torch, np, tt, bench)
-    phase("9/16 K5/K6/K7 short attention vs plain")
+    phase("9/18 K5/K6/K7 short attention vs plain")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     k567 = phase_short(torch, sa, fa, flush, card)
     del flush
-    phase("10/16 end-to-end ViT-base")
+    phase("10/18 end-to-end ViT-base")
     vit = phase_vit(torch, eb, eb.KERNELS, card)
-    phase("11/16 end-to-end RoBERTa-base MLM")
+    phase("11/18 end-to-end RoBERTa-base MLM")
     mlm = phase_mlm(torch, eb, eb.KERNELS, card)
-    phase("12/16 encoder numerics")
+    phase("12/18 encoder numerics")
     phase_encoder_numerics(torch, np, eb, eb.KERNELS)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    phase("13/16 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
+    phase("13/18 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
     qmm, k10_path = phase_quant_matmul(torch, qm, qb, flush, card)
-    phase("14/16 K4 int8/int4 pools vs plain")
+    phase("14/18 K4 int8/int4 pools vs plain")
     k4q = phase_quant_decode(torch, pdm, pa, flush, card)
     del flush
-    phase("15/16 end-to-end quantized serving")
+    phase("15/18 end-to-end quantized serving")
     q8 = phase_serving(
         torch, np, tt, pm, (flash_attention_fwd, pdm.paged_decode_int8,
                             qm.int8_matmul), card,
@@ -1904,7 +2305,7 @@ def main():
         if bf_ms and ms:
             phase(f"graph tick device ms per step {label} {ms:.4f} vs bf16 "
                   f"{bf_ms:.4f} (ratio {ms / bf_ms:.4f}) [{card}]")
-    phase("16/16 quantized numerics")
+    phase("16/18 quantized numerics")
     n8 = phase_numerics(torch, np, tt, pm, "fp32 int8 weights + int8 pool",
                         quant=dict(bits=8), pool_dtype=torch.int8,
                         kernels=(qm.int8_matmul, pdm.paged_decode_int8))
@@ -1925,6 +2326,12 @@ def main():
                    quant=dict(bits=8, act_bits=8), tol=0.1,
                    kernels=(qm.int8_matmul, paged_decode))
     phase_w8a8_linears(torch, np, tt, qm, pm)
+    phase("17/18 end-to-end static-cache generation")
+    gen = phase_generation(torch, np, tt, fa, qm, card)
+    phase("18/18 generation numerics")
+    phase_generation_numerics(torch, np, tt, fa, attn)
+    gen_k1 = sum(r["launches"]["flash_attention_fwd"] for r in gen.values()
+                 ) + gen["bf16"]["generate_launches"]["flash_attention_fwd"]
 
     record = {"kernels": [
         {"name": "paged_decode[split+combine]", "route": "cuda",
@@ -1937,7 +2344,8 @@ def main():
          "replaces": "vyomai_tpu/ops/flash_attention.py:157",
          "launches": sum(run["launches"]["flash_attention_fwd"]
                          for run in (served, q8, q4))
-         + trained["flash_attention_fwd"], **k1},
+         + trained["flash_attention_fwd"] + gen_k1, **k1,
+         "generation_cases": k1_gen},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "vyomai_tpu/ops/flash_attention.py:362",
@@ -1962,8 +2370,9 @@ def main():
         {"name": "int8_matmul_kernel_tc", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "vyomai_tpu/ops/quant_matmul.py:123",
-         "launches": q8["launches"]["int8_matmul_kernel_tc"]
-         + q4["launches"]["int8_matmul_kernel_tc"], **qmm["K8"]},
+         "launches": sum(run["launches"]["int8_matmul_kernel_tc"]
+                         for run in (q8, q4, gen["int8"], gen["int4"])),
+         **qmm["K8"]},
         # fp32 and kn stay on the CUDA cores: phase 16's fp32 path
         {"name": "int8_matmul", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
@@ -1972,7 +2381,8 @@ def main():
         {"name": "int4_matmul_kernel_tc", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "vyomai_tpu/ops/quant_matmul.py:276",
-         "launches": q4["launches"]["int4_matmul_kernel_tc"], **qmm["K9"]},
+         "launches": q4["launches"]["int4_matmul_kernel_tc"]
+         + gen["int4"]["launches"]["int4_matmul_kernel_tc"], **qmm["K9"]},
         # fp32, kn and split stay on the CUDA cores: phase 16's fp32 path
         {"name": "int4_matmul", "route": "cuda",
          "source": "vyomai_tpu_torch/csrc/quant_matmul.cu",
@@ -2008,6 +2418,17 @@ def main():
         "pipelined_ttft_s": served["ttft_s"],
         "sync_ttft_s": served["sync_ttft_s"],
         "chained_ticks": served["chained"], "card": card}
+    # static-cache generation at Qwen3-0.6B width (phase 17)
+    record["generation"] = {
+        label: {k: run[k] for k in (
+            "tok_s", "prefill_ms", "prefill_device_ms", "step_wall_ms",
+            "step_wall_range_ms",
+            "step_wall_from_run_ms", "step_device_ms", "idle", "k1_ms",
+            "k8_ms", "k9_ms", "agree_bf16", "source")}
+        for label, run in gen.items()}
+    record["generation"]["bf16"]["generate_tok_s"] = gen["bf16"][
+        "generate_tok_s"]
+    record["generation"]["card"] = card
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

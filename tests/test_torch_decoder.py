@@ -176,11 +176,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tt.DecoderModel(TCFG, "rope", "gqa", remat="dots", device="cpu")
     with pytest.raises(NotImplementedError):
-        model(ids, cache={})
-    with pytest.raises(NotImplementedError):
         model(ids, segment_ids=ids)
     with pytest.raises(NotImplementedError):
-        model.generate(ids)
+        model(ids, cache=model.init_cache(max_len=8), positions=ids)
     with pytest.raises(ValueError):
         set_sdpa_impl("nope")
     with pytest.raises(ValueError):

@@ -3,9 +3,11 @@
 1. The port stands alone: no module of ``vyomai_tpu_torch`` and nothing
    ``chip_smoke.py`` imports loads or reads a file of the JAX package, and
    jax is never imported. Checked in a fresh interpreter (so the other test
-   files' JAX imports cannot leak in) after driving every model, a tiny
-   serving engine and two quantized ones (W8A8 + int8 pool, int4 + int4
-   pool), and by a search of the sources for file loaders.
+   files' JAX imports cannot leak in) after driving every model, the
+   generation loops (``DecoderModel.generate``, ``generate``,
+   ``generate_hf``, ``generate_until``), a tiny serving engine and two
+   quantized ones (W8A8 + int8 pool, int4 + int4 pool), and by a search of
+   the sources for file loaders.
 2. Entry points build on the CUDA card unless the caller names another
    device: with no card they raise, naming ``device="cpu"``; they never
    fall back to the CPU quietly.
@@ -70,6 +72,13 @@ qcfg = tt.QwenConfig(vocab_size=64, hidden_size=32, intermediate_size=64,
                      num_key_value_heads=1, head_dim=16,
                      max_position_embeddings=64, eos_token_id=9999)
 model = tt.ModelForCausalLM(qcfg, device="cpu").init(g())
+with torch.no_grad():
+    dec = tt.DecoderModel(ecfg, "rope", "gqa", device="cpu").init(g())
+    assert dec.generate(ids, max_len=4).shape == (2, 16)
+    assert tt.generate_hf(model, ids, max_new_tokens=3).shape == (2, 15)
+    assert tt.generate(model, ids, max_new_tokens=2,
+                       use_cache=True).shape == (2, 14)
+    assert tt.generate_until(model, ids[:1], max_new_tokens=3).shape[0] == 1
 eng = tt.ContinuousBatchEngine(model, num_blocks=32, block_size=8,
                                max_batch=2, max_blocks_per_seq=4,
                                max_new_tokens=3, dtype=torch.float32,
@@ -170,6 +179,7 @@ ENTRY_POINTS = {
     "ModelForCausalLM": lambda **kw: tt.ModelForCausalLM(QCFG, **kw),
     "init_pool": lambda **kw: paged_model.init_pool(
         QCFG, 4, 8, dtype=torch.float32, **kw),
+    "init_cache": lambda **kw: tt.init_cache(QCFG, max_len=8, **kw)["k"],
     "init_pool_int8": lambda **kw: paged_model.init_pool(
         QCFG, 4, 8, dtype=torch.int8, **kw)["kv"],
     "init_pool_int4": lambda **kw: paged_model.init_pool(

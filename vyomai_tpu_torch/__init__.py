@@ -8,6 +8,13 @@ passes ``device="cpu"`` (or another device).
 """
 
 from .config import EncoderConfig, QwenConfig, VisionConfig  # noqa: F401
+from .generation import (  # noqa: F401
+    generate, generate_hf, generate_multimodel, generate_seq2seq,
+    generate_until, GreedyProcessor, KeywordsStoppingCriteria,
+    MinPProcessor, MultinomialProcessor, NucleusProcessor,
+    TopKNucleusProcessor, TopKProcessor)
+from .layers.kv_cache import (  # noqa: F401
+    DynamicCache, DynamicCacheOne, StaticCache, StaticCacheOne, init_cache)
 from .models.decoder import DecoderModel  # noqa: F401
 from .models.encoder import EncoderForMaskedLM, EncoderModel  # noqa: F401
 from .models.qwen import ModelForCausalLM  # noqa: F401

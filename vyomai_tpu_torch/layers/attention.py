@@ -2,8 +2,8 @@
 ``vyomai_tpu.layers.attention``): q/k/v projections with biases (the
 vision kind's fused ``qkv``), the ``sdpa`` dispatcher, the post-LN
 self-output ``LN(dropout(W.attn) + input)`` and the encoder/vision and
-decoder self-attention blocks. The decoder's static KV cache and the cross
-block are not ported yet.
+decoder self-attention blocks, the latter with the static KV cache
+(``layers.kv_cache``). The cross block is not ported yet.
 
 ``sdpa`` routes:
 
@@ -39,6 +39,7 @@ from ..core import nn as cnn
 from ..core.masks import NEG_INF
 from ..ops import flash_attention as fa
 from ..ops import short_attention as sa
+from .kv_cache import write_layer
 from .positional import apply_rotary_pos_emb
 
 _SDPA_IMPL = "auto"
@@ -263,17 +264,22 @@ def encoder_attention_apply(p: Attention, hidden, attention_mask, config, *,
 
 def decoder_attention_apply(p: Attention, hidden, attention_mask, config, *,
                             kind: str = "mha", freqs=None, cache_kv=None,
-                            causal: bool = False, deterministic: bool = True,
+                            start_pos: int = 0, causal: bool = False,
+                            deterministic: bool = True,
                             generator: Optional[torch.Generator] = None):
-    """Causal self-attention without a cache. Returns ``(output, None)``,
-    the JAX function's ``(output, cache_kv)``."""
-    if cache_kv is not None:
-        raise NotImplementedError(
-            "the decoder's static KV cache is not ported yet")
+    """Causal self-attention. Returns ``(output, cache_kv)``.
+
+    ``cache_kv``: optional ``(k_buf, v_buf)``, one layer's static buffers
+    ``[B, H_kv, max_len, D]``. The new k/v are written into them IN PLACE
+    at ``start_pos`` and the queries attend over the whole buffer (the
+    caller's mask hides what is not written yet). ``sdpa`` takes the
+    ``H_kv`` heads as they are; only its ``"xla"`` route repeats them."""
     q, k, v = project_qkv(p, hidden, config, kind)
     if freqs is not None:
         q, k = apply_rotary_pos_emb(q, k, freqs)
+    if cache_kv is not None:
+        k, v = write_layer(cache_kv, k, v, start_pos)
     out = sdpa(q, k, v, attention_mask, causal=causal)
     out = self_output_apply(p.out, _merge_heads(out), hidden, config,
                             deterministic=deterministic, generator=generator)
-    return out, None
+    return out, cache_kv

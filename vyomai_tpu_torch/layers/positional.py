@@ -33,6 +33,15 @@ def absolute_slice(weight: torch.Tensor, start_pos: int, length: int,
     return cnn.embedding(weight, positions, pad_idx=pad_idx)[None]
 
 
+def table_slice(table: torch.Tensor, start_pos: int, length: int
+                ) -> torch.Tensor:
+    """Rows ``[start_pos, start_pos + length)`` of a constant table ``[1,
+    max_len, D]``, the start clamped into ``[0, max_len - length]`` as
+    ``lax.dynamic_slice_in_dim`` clamps it."""
+    start = min(max(int(start_pos), 0), table.shape[1] - length)
+    return table[:, start:start + length]
+
+
 # -- sinusoidal (constant) ----------------------------------------------------------
 
 def sinusoidal_table(max_len: int, dim: int,

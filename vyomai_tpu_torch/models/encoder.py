@@ -169,8 +169,9 @@ class TextModel(LayerStack):
         for layer in self.layers:
             layer.init_(cfg, generator)
 
-    def embed(self, input_ids):
-        """Token + positional embedding; returns ``(hidden, freqs)``."""
+    def embed(self, input_ids, start_pos: int = 0):
+        """Token + positional embedding for positions ``[start_pos,
+        start_pos + L)``; returns ``(hidden, freqs)``."""
         seqlen = input_ids.shape[1]
         pad = getattr(self.config, "pad_token_id", None)
         hidden = cnn.embedding(self.word_embeddings.weight, input_ids,
@@ -178,12 +179,13 @@ class TextModel(LayerStack):
         freqs = None
         if self.pos_embedding_type == "absolute":
             hidden = hidden + pos.absolute_slice(
-                self.position_embeddings.weight, 0, seqlen,
+                self.position_embeddings.weight, start_pos, seqlen,
                 pad_idx=pad).to(hidden.dtype)
         elif self.pos_embedding_type == "sinusoidal":
-            hidden = hidden + self.sin_table[:, :seqlen].to(hidden.dtype)
+            hidden = hidden + pos.table_slice(
+                self.sin_table, start_pos, seqlen).to(hidden.dtype)
         elif self.pos_embedding_type == "rope":
-            freqs = self.emb_freq[:, :seqlen]
+            freqs = pos.table_slice(self.emb_freq, start_pos, seqlen)
         return hidden, freqs
 
 

@@ -22,7 +22,8 @@ The quantizers are the JAX package's, bit for bit: an ``Int8Linear``'s
 row n holds input rows 2i and 2i+1 of output n, the layout the tensor-core
 K9 reads). ``core.nn.apply_linear`` /
 ``apply_embedding`` / ``apply_tied_lm_head`` dispatch on the module, so the
-serving path runs a quantized model with no special case at its call sites.
+serving path and ``ModelForCausalLM``'s dense forward (the generation
+loops) run a quantized model with no special case at their call sites.
 
 MoE expert banks (the JAX ``_quantize_moe``) wait for ``layers/moe.py``:
 :func:`quantize_model` raises on a module that holds them.
@@ -142,8 +143,9 @@ def quantize_model(model: nn.Module, *, bits: int = 8,
                    embed: bool = True, exclude=_EXCLUDE_DEFAULT) -> nn.Module:
     """Quantize ``model``'s linears (and, with ``embed``, its token table)
     IN PLACE, by the JAX ``quantize_params`` rules (module docstring).
-    Returns ``model``. The serving path (``serving.paged_model``) runs the
-    result; the other models' layers read float weights directly."""
+    Returns ``model``. ``ModelForCausalLM`` (dense and through
+    ``serving.paged_model``) runs the result; the other models' layers read
+    float weights directly."""
     if bits not in (8, 4):
         raise ValueError(f"bits={bits}: 8 or 4")
     if act_bits not in (0, 8):

@@ -1,8 +1,9 @@
-"""Decode-shaped quantized matmuls on one NVIDIA card (counterpart of part
-1 of the JAX package's ``benchmarks/quant_bench.py`` and of
+"""Quantized matmuls and quantized generation on one NVIDIA card
+(counterpart of the JAX package's ``benchmarks/quant_bench.py`` and of
 ``benchmarks/int4_dense_bench.py``).
 
     python -m vyomai_tpu_torch.quant_bench [--m 16] [--gs 128]
+    python -m vyomai_tpu_torch.quant_bench --e2e
 
 For each linear shape of Qwen3-0.6B (and its tied head) at M decode
 tokens, bf16 activations: ``torch.matmul`` on the bf16 weight, the plain
@@ -15,14 +16,24 @@ dotted as int8: K9's traffic without unpack or group scales) and
 Times are medians of CUDA-event launches with the 50 MB L2 flushed before
 each (the weights come from device memory, as in a decode step) and a
 ~1 ms sleep kernel queued behind the flush, so the events time the
-device's work and not the host's enqueue (as ``chip_smoke.cuda_ms``). Part 2 of
-the JAX bench (static-cache ``generate``) waits for the port's
-``generate``; ``chip_smoke.py`` serves the quantized model instead.
+device's work and not the host's enqueue (as ``chip_smoke.cuda_ms``).
+
+``--e2e`` is part 2 of the JAX bench (``bench_e2e``): dense static-cache
+greedy decode through the port's ``generate(use_cache=True)`` at the JAX
+bench's config (vocab 32,768, hidden 2,048, intermediate 8,192, 12 layers,
+16/4 heads, head_dim 128, QK-norm, tied head; random bf16 weights from a
+seed), B=8, a 128-token prompt, 256 new tokens: bf16 weights, then the
+same weights through ``quantize_model`` int8, then int4 (gs 128). Each is
+timed on the host clock between two synchronises, after a short warm-up
+run; one JSON line each with tokens/s, ms per step, the card's name and
+its power limit.
 """
 
 import argparse
 import json
 import statistics
+import subprocess
+import time
 
 import torch
 
@@ -125,15 +136,68 @@ def int4_attribution(m: int = 8, k: int = 2048, n: int = 2048,
     }
 
 
+def card_name_and_limit() -> str:
+    """``name, power.limit`` of card 0, as ``nvidia-smi`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def bench_e2e(batch: int = 8, prompt: int = 128, new: int = 256,
+              warmup_new: int = 4):
+    """Greedy static-cache ``generate`` of the JAX bench's ~0.8B model,
+    bf16 then int8 then int4 (gs 128) weights; one record each."""
+    import vyomai_tpu_torch as tt
+    cfg = tt.QwenConfig(vocab_size=32768, hidden_size=2048,
+                        intermediate_size=8192, num_hidden_layers=12,
+                        num_attention_heads=16, num_key_value_heads=4,
+                        head_dim=128, max_position_embeddings=1024,
+                        qk_norm=True, eos_token_id=-1,
+                        tie_word_embeddings=True)
+    dev = torch.device("cuda")
+    ids = torch.randint(5, cfg.vocab_size, (batch, prompt), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    card = card_name_and_limit()
+    out = []
+    for label, quant in (("bf16", None), ("int8", dict(bits=8)),
+                         ("int4", dict(bits=4, group_size=128))):
+        model = tt.ModelForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+        model.requires_grad_(False)
+        n_params = sum(p.numel() for p in model.parameters())
+        if quant is not None:
+            tt.quantize_model(model, **quant)
+        tt.generate(model, ids, max_new_tokens=warmup_new, use_cache=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt.generate(model, ids, max_new_tokens=new, use_cache=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out.append({"metric": "e2e_generate", "weights": label,
+                    "params": n_params, "batch": batch, "prompt": prompt,
+                    "new": new, "tok_s": batch * new / dt,
+                    "ms_per_step": dt * 1e3 / new, "card": card})
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--m", type=int, default=16)
     ap.add_argument("--gs", type=int, default=128)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--e2e", action="store_true",
+                    help="static-cache generate, bf16 / int8 / int4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("quant_bench measures the CUDA card; none found")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.e2e:
+        for rec in bench_e2e():
+            print(json.dumps(rec), flush=True)
+        return
     card = torch.cuda.get_device_name(0)
     for k, n in QWEN3_SHAPES:
         rec = bench_shape(args.m, k, n, args.gs, args.iters)

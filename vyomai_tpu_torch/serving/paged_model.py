@@ -33,8 +33,8 @@ from ..core import nn as cnn
 from ..core.device import resolve_device
 from ..core.masks import NEG_INF
 from ..generation.sampling import _min_p_mask, _top_p_mask
-from ..layers.modern import swiglu_apply
-from ..layers.positional import rotate_half
+from ..layers.modern import (lm_logits, mlp_residual, qkv_heads, rope_tables,
+                             rotate)
 from ..ops.flash_attention import flash_attention_fwd
 from ..ops.paged_attention import gather_kv, write_kv
 from ..ops.paged_decode import (paged_decode, paged_decode_int4,
@@ -90,41 +90,8 @@ def _flat(pool):
     return kv.view(nl * nb, *kv.shape[2:]), flat_sc, nb
 
 
-def _head(model, h: torch.Tensor) -> torch.Tensor:
-    if model.lm_head is not None:
-        return cnn.apply_linear(model.lm_head, h)
-    return cnn.apply_tied_lm_head(model.embed_tokens, h)
-
-
 def _layer_tables(tables: torch.Tensor, layer: int, nb: int) -> torch.Tensor:
     return torch.where(tables >= 0, tables + layer * nb, tables)
-
-
-def _rope(model, positions: torch.Tensor, dtype):
-    """cos/sin ``[..., 1, D]`` for absolute positions, from the fp32
-    angle table (cast to the activation dtype as the JAX path does)."""
-    freqs = model.emb_freq[0][positions]
-    emb = torch.cat([freqs, freqs], dim=-1).unsqueeze(-2)
-    return ((torch.cos(emb) * model.rope_scale).to(dtype),
-            (torch.sin(emb) * model.rope_scale).to(dtype))
-
-
-def _qkv(attn, cfg, normed, lead):
-    nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                   cfg.head_dim)
-    q = cnn.apply_linear(attn.q_proj, normed).reshape(*lead, nh, hd)
-    k = cnn.apply_linear(attn.k_proj, normed).reshape(*lead, nkv, hd)
-    v = cnn.apply_linear(attn.v_proj, normed).reshape(*lead, nkv, hd)
-    if attn.q_norm is not None:
-        q = cnn.rms_norm(attn.q_norm.weight, q, eps=cfg.rms_norm_eps)
-        k = cnn.rms_norm(attn.k_norm.weight, k, eps=cfg.rms_norm_eps)
-    return q, k, v
-
-
-def _mlp_block(layer, cfg, h):
-    normed = cnn.rms_norm(layer.post_attention_layernorm.weight, h,
-                          eps=cfg.rms_norm_eps)
-    return h + swiglu_apply(layer.mlp, normed)
 
 
 def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
@@ -148,16 +115,15 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
     k_pos = torch.arange(maxb * bs, device=ids.device)[None, None, :]
     ok = (k_pos <= positions[:, :, None]) & (k_pos < ctx_len[:, None, None])
     bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)[:, None]
-    cos, sin = _rope(model, positions, hidden.dtype)            # [N,T,1,D]
+    cos, sin = rope_tables(model, positions, hidden.dtype)      # [N,T,1,D]
     flat_blocks = slot_blocks.reshape(-1)
     flat_offsets = slot_offsets.reshape(-1)
 
     for layer_i, layer in enumerate(model.layers):
         normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
                               eps=cfg.rms_norm_eps)
-        q, k, v = _qkv(layer.self_attn, cfg, normed, (n, t_pad))
-        q = q * cos + rotate_half(q) * sin
-        k = k * cos + rotate_half(k) * sin
+        q, k, v = qkv_heads(layer.self_attn, cfg, normed, (n, t_pad))
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         write_kv(flat_pool, k.reshape(n * t_pad, nkv, -1),
                  v.reshape(n * t_pad, nkv, -1),
                  _layer_tables(flat_blocks, layer_i, nb), flat_offsets,
@@ -175,7 +141,7 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
                                       vv.to(acc).contiguous(), bias)
         attn = attn.to(qh.dtype).transpose(1, 2).reshape(n, t_pad, -1)
         hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj, attn)
-        hidden = _mlp_block(layer, cfg, hidden)
+        hidden = mlp_residual(layer, cfg, hidden)
     return cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
 
 
@@ -190,7 +156,7 @@ def prefill(model, pool, ids, positions, slot_blocks, slot_offsets,
                          slot_offsets, block_tables, ctx_len)
     last = (true_len.long() - 1).clamp_min(0)
     rows = torch.arange(hidden.shape[0], device=hidden.device)
-    return _head(model, hidden[rows, last])
+    return lm_logits(model, hidden[rows, last])
 
 
 @torch.no_grad()
@@ -207,13 +173,12 @@ def decode(model, pool, tokens, positions, block_tables, seq_lens,
     flat_pool, flat_sc, nb = _flat(pool)
     nkv = cfg.num_key_value_heads
     hidden = cnn.apply_embedding(model.embed_tokens, tokens)     # [B, Dm]
-    cos, sin = _rope(model, positions, hidden.dtype)             # [B,1,D]
+    cos, sin = rope_tables(model, positions, hidden.dtype)       # [B,1,D]
     for layer_i, layer in enumerate(model.layers):
         normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
                               eps=cfg.rms_norm_eps)
-        q, k, v = _qkv(layer.self_attn, cfg, normed, (b,))
-        q = q * cos + rotate_half(q) * sin
-        k = k * cos + rotate_half(k) * sin
+        q, k, v = qkv_heads(layer.self_attn, cfg, normed, (b,))
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         write_kv(flat_pool, k, v, _layer_tables(slot_blocks, layer_i, nb),
                  slot_offsets, scales=flat_sc)
         attn = paged_decode(q.contiguous(), flat_pool,
@@ -221,9 +186,9 @@ def decode(model, pool, tokens, positions, block_tables, seq_lens,
                             seq_lens, nkv, scales=flat_sc)       # [B, H, D]
         hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj,
                                            attn.reshape(b, -1))
-        hidden = _mlp_block(layer, cfg, hidden)
+        hidden = mlp_residual(layer, cfg, hidden)
     hidden = cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
-    return _head(model, hidden)
+    return lm_logits(model, hidden)
 
 
 def sampling_tensors(device, temperature=1.0, top_p=1.0, min_p=0.0):
