@@ -1,0 +1,12 @@
+"""Share of the slice in which no kernel, memcpy or memset ran on the
+device."""
+
+from .. import trace as T
+
+NAME, UNIT, SOURCE = "idle_share.tpot", "%", "device_trace"
+LAYER, MOVES = "device", "tpot_p95_ms"
+KERNELS = ()
+
+
+def read(run, trace, cell):
+    return T.idle_share(trace) if trace else None
