@@ -22,6 +22,16 @@ pinned staging buffers and its tokens come back into one, behind an event,
 so neither copy waits for a tick in flight. Greedy by default;
 ``do_sample`` draws with engine-wide temperature/top-p/min-p from a seeded
 ``torch.Generator``.
+
+While a ``torch.profiler`` session records, the scheduler's phases are
+spans in its trace (``spans.span``): ``engine.step`` around a step;
+inside it ``engine.admit``, ``engine.prefill`` (``engine.prefill.inputs``,
+``paged_model.prefill`` with one ``paged_model.prefill.layer`` a layer,
+``engine.prefill.read``) and ``engine.tick`` (``engine.tick.dispatch``
+around ``engine.tick.launch``, ``engine.tick.harvest``, and
+``engine.tick.wait`` around each wait on a tick's event). The times and
+counts behind the per-layer metrics are in ``counters`` always, on
+``time.perf_counter_ns``'s clock.
 """
 
 import time
@@ -33,7 +43,10 @@ import torch
 
 from . import paged_model
 from .kv_manager import PagedKVManager, SequenceState
+from .spans import span
 from ..generation.sampling import normalize_eos
+
+clock = time.perf_counter_ns
 
 # engine features of the JAX package that this port does not run yet
 _UNPORTED_ENGINE_ARGS = (
@@ -155,9 +168,55 @@ class ContinuousBatchEngine:
             "prompt_tokens": 0, "cached_prompt_tokens": 0,
             "tokens_generated": 0, "prefill_calls": 0,
             "decode_ticks": 0, "chained_ticks": 0, "preemptions": 0,
+            "requests_admitted": 0, "queue_wait_ns": 0,
+            "requests_prefilled": 0, "prefill_wait_ns": 0,
+            "prefill_ns": 0, "prefill_dispatch_ns": 0,
+            "prefill_tokens": 0, "prefill_slots": 0,
+            "prefill_attn_pairs": 0, "prefill_ctx_tokens": 0,
+            "tick_host_ns": 0,
         }
-        self._ttft: List[float] = []
-        self._t_start = time.monotonic()
+        """Running integer counts, read as differences between two copies
+        (``dict(engine.counters)``); times are ``time.perf_counter_ns``
+        nanoseconds. Each key moves once per request, prefill call or tick,
+        never per token. In parentheses, the benchmark's per-layer metric
+        (``gpubench/metrics/``) that reads the key.
+
+        - ``requests_submitted``, ``prompt_tokens``: ``submit`` calls and
+          their prompts' tokens; ``cached_prompt_tokens``: of those, the
+          ones the radix cache held at admission (``prefix_hit_share``).
+        - ``requests_completed``; ``tokens_generated``: tokens appended to
+          any request; ``preemptions``: sequences freed and requeued for
+          want of blocks.
+        - ``requests_admitted``, ``queue_wait_ns``: moves from the waiting
+          room to the prefill queue, and the time each waited there since
+          its submit, or since its requeue after a preemption
+          (``queue_wait_ms``).
+        - ``requests_prefilled``, ``prefill_wait_ns``: admissions whose
+          first prefill call started, and the time from the admission to
+          that start (``prefill_wait_ms``).
+        - ``prefill_calls``, ``prefill_ns``: prefill calls and the wall
+          time of each, from its inputs to its token appends
+          (``prefill_call_ms``, ``prefill_time_share.tok_s``);
+          ``prefill_dispatch_ns``: of that, from the call's start until the
+          forward has returned, before the read-back waits for the device
+          (``prefill_dispatch_share``).
+        - ``prefill_tokens``, ``prefill_slots``: real suffix tokens, and
+          the ``prefill_group`` x bucket slots each call padded them to
+          (``padded_token_share``).
+        - ``prefill_attn_pairs``: over real suffix tokens, the keys each
+          attends (its position + 1); ``prefill_ctx_tokens``: over real
+          rows, the K/V rows a row attends, its cached prefix and suffix
+          (``k1_roofline.ttft``).
+        - ``decode_ticks``, ``chained_ticks``: decode ticks, and those
+          dispatched from the tick in flight (``chained_tick_share``);
+          ``tick_host_ns``: the host's time in ticks outside the waits on a
+          tick's event (``tick_host_ms.tok_s``).
+        """
+        # submit -> first token, without keeping one number per request
+        self._first_token_ns = 0
+        self._first_token_max_ns = 0
+        self._first_tokens = 0
+        self._waited_ns = 0          # in the tick running, on its events
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
@@ -189,7 +248,8 @@ class ContinuousBatchEngine:
         state.no_radix = not self.radix_cache
         state.max_new = (self.max_new_tokens if max_new_tokens is None
                          else max_new_tokens)
-        state.t_submit = time.monotonic()
+        state.t_submit = state.t_queued = clock()
+        state.t_admitted = None
         self.counters["requests_submitted"] += 1
         self.counters["prompt_tokens"] += len(prompt)
         self.waiting.append(state)
@@ -227,21 +287,18 @@ class ContinuousBatchEngine:
         return True
 
     def metrics(self) -> Dict[str, float]:
-        """Running counters plus ``ttft_mean_s``/``ttft_max_s``,
-        ``cache_hit_rate``, ``tokens_per_s`` since construction, and the
-        device bytes the pool (``pool_bytes``, scales included) and the
-        model's weights (``weight_bytes``, quantized buffers included)
-        hold."""
+        """Running counters plus ``ttft_mean_s``/``ttft_max_s`` (submit to
+        first token), ``cache_hit_rate``, and the device bytes the pool
+        (``pool_bytes``, scales included) and the model's weights
+        (``weight_bytes``, quantized buffers included) hold."""
         out = dict(self.counters)
         out.update(self.kv.cache_stats())
-        out["ttft_mean_s"] = (sum(self._ttft) / len(self._ttft)
-                              if self._ttft else 0.0)
-        out["ttft_max_s"] = max(self._ttft, default=0.0)
+        out["ttft_mean_s"] = (self._first_token_ns / self._first_tokens
+                              * 1e-9 if self._first_tokens else 0.0)
+        out["ttft_max_s"] = self._first_token_max_ns * 1e-9
         out["cache_hit_rate"] = (
             self.counters["cached_prompt_tokens"]
             / max(self.counters["prompt_tokens"], 1))
-        out["tokens_per_s"] = self.counters["tokens_generated"] / max(
-            time.monotonic() - self._t_start, 1e-9)
         out["pool_bytes"] = paged_model.pool_bytes(self.pool)
         out["weight_bytes"] = sum(t.numel() * t.element_size()
                                   for t in self.model.state_dict().values())
@@ -285,8 +342,12 @@ class ContinuousBatchEngine:
                         f"tokens needs {self.kv.blocks_needed(budget)} "
                         f"blocks, pool has {self.kv.num_blocks}")
                 break
-            self.counters["cached_prompt_tokens"] += state.num_cached_tokens
             self.waiting.popleft()
+            state.t_admitted = clock()
+            c = self.counters
+            c["cached_prompt_tokens"] += state.num_cached_tokens
+            c["requests_admitted"] += 1
+            c["queue_wait_ns"] += state.t_admitted - state.t_queued
             self.needs_prefill.append(state)
 
     def _preempt_youngest(self):
@@ -299,12 +360,43 @@ class ContinuousBatchEngine:
         self.active.pop(victim.seq_id, None)
         victim.prefill_len = len(victim.tokens)
         victim.num_cached_tokens = 0
+        victim.t_queued = clock()
         self.waiting.appendleft(victim)
 
     def _prefill_group_call(self, states):
         """Prefill up to ``prefill_group`` admissions in one call; a suffix
         longer than the largest bucket writes its first chunk and goes back
         to the head of the prefill queue."""
+        t0 = clock()
+        c = self.counters
+        with span("engine.prefill"):
+            for state in states:
+                if state.t_admitted is not None:   # its first prefill call
+                    c["requests_prefilled"] += 1
+                    c["prefill_wait_ns"] += t0 - state.t_admitted
+                    state.t_admitted = None
+            with span("engine.prefill.inputs"):
+                inputs, suffixes = self._prefill_inputs(states)
+            logits = paged_model.prefill(self.model, self.pool, *inputs)
+            t_dispatched = clock()
+            with span("engine.prefill.read"):
+                next_tokens = self._pick_tokens(logits)
+                for i, state in enumerate(states):
+                    done = state.num_cached_tokens + len(suffixes[i])
+                    if done >= state.prefill_len:
+                        self.active[state.seq_id] = state
+                        self._append_token(state, int(next_tokens[i]))
+                    else:  # more chunks to go: KV written, logits discarded
+                        state.num_cached_tokens = done
+                        self.needs_prefill.appendleft(state)
+        c["prefill_calls"] += 1
+        c["prefill_dispatch_ns"] += t_dispatched - t0
+        c["prefill_ns"] += clock() - t0
+
+    def _prefill_inputs(self, states):
+        """The call's padded device inputs, ``[prefill_group, bucket]``
+        (rows past ``states`` dead), and each state's suffix; counts the
+        call's tokens, slots and attention work."""
         n_pad = self.prefill_group
         cap = self.prefill_buckets[-1]
         bs = self.block_size
@@ -320,6 +412,7 @@ class ContinuousBatchEngine:
         tables = np.full((n_pad, self.max_blocks_per_seq), -1, dtype=np.int32)
         ctx_len = np.zeros(n_pad, dtype=np.int64)
         true_len = np.zeros(n_pad, dtype=np.int64)
+        pairs = ctx = 0
         for i, (state, suffix) in enumerate(zip(states, suffixes)):
             cached, t = state.num_cached_tokens, len(suffix)
             ids[i, :t] = suffix
@@ -331,19 +424,17 @@ class ContinuousBatchEngine:
             tables[i, :len(state.block_table)] = state.block_table
             ctx_len[i] = state.prefill_len
             true_len[i] = t
-        logits = paged_model.prefill(
-            self.model, self.pool, self._put(ids), self._put(positions),
-            self._put(slot_blocks), self._put(slot_offsets),
-            self._put(tables), self._put(ctx_len), self._put(true_len))
-        self.counters["prefill_calls"] += 1
-        next_tokens = self._pick_tokens(logits)
-        for i, state in enumerate(states):
-            if state.num_cached_tokens + len(suffixes[i]) >= state.prefill_len:
-                self.active[state.seq_id] = state
-                self._append_token(state, int(next_tokens[i]))
-            else:  # more chunks to go: KV written, logits discarded
-                state.num_cached_tokens += len(suffixes[i])
-                self.needs_prefill.appendleft(state)
+            pairs += t * cached + t * (t + 1) // 2   # keys: position + 1
+            ctx += cached + t
+        c = self.counters
+        c["prefill_tokens"] += int(true_len.sum())
+        c["prefill_slots"] += n_pad * t_pad
+        c["prefill_attn_pairs"] += pairs
+        c["prefill_ctx_tokens"] += ctx
+        inputs = [self._put(x) for x in (ids, positions, slot_blocks,
+                                         slot_offsets, tables, ctx_len,
+                                         true_len)]
+        return inputs, suffixes
 
     def _pick_tokens(self, logits) -> np.ndarray:
         if self.do_sample:
@@ -356,7 +447,10 @@ class ContinuousBatchEngine:
     def _append_token(self, state: SequenceState, tok: int):
         state.tokens.append(tok)
         if len(state.tokens) == state.prompt_len + 1:
-            self._ttft.append(time.monotonic() - state.t_submit)
+            ttft = clock() - state.t_submit
+            self._first_token_ns += ttft
+            self._first_token_max_ns = max(self._first_token_max_ns, ttft)
+            self._first_tokens += 1
         self.counters["tokens_generated"] += 1
         self._maybe_finish(state)
 
@@ -379,14 +473,22 @@ class ContinuousBatchEngine:
         device carry (final tokens and eos flags) feeds the next tick's
         dispatch before the in-flight tick is read back, so the host's
         harvest and bookkeeping overlap the next tick on the card."""
+        t0, self._waited_ns = clock(), 0
+        with span("engine.tick"):
+            self._tick()
+        self.counters["tick_host_ns"] += clock() - t0 - self._waited_ns
+
+    def _tick(self):
         prev, self._inflight = self._inflight, None
         if prev is not None:
-            nxt = self._try_chain(prev)   # dispatched while prev is in flight
+            with span("engine.tick.dispatch"):
+                nxt = self._try_chain(prev)   # while prev is in flight
             self._harvest_decode(prev)
             if nxt is not None:
                 self._inflight = nxt
                 return
-        rec = self._dispatch_decode()
+        with span("engine.tick.dispatch"):
+            rec = self._dispatch_decode()
         if rec is None:
             return
         if rec["chainable"]:
@@ -426,7 +528,9 @@ class ContinuousBatchEngine:
             self._preempt_youngest()
             return None
         self.counters["decode_ticks"] += 1
-        rec = self._launch_tick(positions, tables, live_mask, budget, tokens)
+        with span("engine.tick.launch"):
+            rec = self._launch_tick(positions, tables, live_mask, budget,
+                                    tokens)
         # chain safety: a chained tick must never write KV into blocks the
         # host frees at the harvest before it. Every finish the device
         # cannot see (a second eos id) rules chaining out; the features of
@@ -480,7 +584,8 @@ class ContinuousBatchEngine:
             live.append((i, state, h1))
         self.counters["decode_ticks"] += 1
         self.counters["chained_ticks"] += 1
-        rec = self._launch_tick(positions, tables, live_mask, budget)
+        with span("engine.tick.launch"):
+            rec = self._launch_tick(positions, tables, live_mask, budget)
         rec.update(chainable=True, live=live)
         return rec
 
@@ -518,7 +623,7 @@ class ContinuousBatchEngine:
         stage = self._stages.pop(0)
         self._stages.append(stage)
         if stage["event"] is not None:
-            stage["event"].synchronize()
+            self._wait(stage["event"])
         for name, x in (("positions", positions), ("tables", tables),
                         ("live", live_mask), ("budget", budget),
                         ("tokens", tokens)):
@@ -535,33 +640,46 @@ class ContinuousBatchEngine:
             stage["event"].record()
         return {"stage": stage}
 
+    def _wait(self, event):
+        """Block until ``event`` has completed; the time is kept out of
+        ``tick_host_ns``."""
+        t0 = clock()
+        with span("engine.tick.wait"):
+            event.synchronize()
+        self._waited_ns += clock() - t0
+
     def _harvest_decode(self, rec):
         stage = rec["stage"]
         if stage["event"] is not None:
-            stage["event"].synchronize()   # this tick's tokens, and no later
-        gen = stage["out"].numpy().copy()
-        for i, state, h in rec["live"]:
-            if state.finished:
-                # finished at an earlier harvest (or aborted) while this
-                # stale tick was in flight; the carry kept the lane dead
-                continue
-            for j in range(h):   # only granted steps have blocks
-                self._append_token(state, int(gen[i, j]))
+            self._wait(stage["event"])   # this tick's tokens, and no later
+        with span("engine.tick.harvest"):
+            gen = stage["out"].numpy().copy()
+            for i, state, h in rec["live"]:
                 if state.finished:
-                    break
+                    # finished at an earlier harvest (or aborted) while
+                    # this stale tick was in flight; the carry kept the
+                    # lane dead
+                    continue
+                for j in range(h):   # only granted steps have blocks
+                    self._append_token(state, int(gen[i, j]))
+                    if state.finished:
+                        break
 
     def step(self):
         """One scheduler tick: admit -> prefill groups -> decode batch."""
-        self._try_admit()
-        groups_done = 0
-        while self.needs_prefill:
-            if (self.max_prefill_per_tick is not None and self.active
-                    and groups_done >= self.max_prefill_per_tick):
-                break  # decode now; remaining prefills ride later ticks
-            group = []
-            while self.needs_prefill and len(group) < self.prefill_group:
-                group.append(self.needs_prefill.popleft())
-            self._prefill_group_call(group)
-            groups_done += 1
-            self._try_admit()
-        self._decode_batch()
+        with span("engine.step"):
+            with span("engine.admit"):
+                self._try_admit()
+            groups_done = 0
+            while self.needs_prefill:
+                if (self.max_prefill_per_tick is not None and self.active
+                        and groups_done >= self.max_prefill_per_tick):
+                    break  # decode now; remaining prefills ride later ticks
+                group = []
+                while self.needs_prefill and len(group) < self.prefill_group:
+                    group.append(self.needs_prefill.popleft())
+                self._prefill_group_call(group)
+                groups_done += 1
+                with span("engine.admit"):
+                    self._try_admit()
+            self._decode_batch()

@@ -40,6 +40,7 @@ from ..ops.paged_attention import gather_kv, write_kv
 from ..ops.paged_decode import (paged_decode, paged_decode_int4,
                                 paged_decode_int8)
 from ..ops.quant_matmul import int4_matmul, int8_matmul
+from .spans import span
 
 
 def init_pool(config, num_blocks: int, block_size: int,
@@ -120,28 +121,29 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
     flat_offsets = slot_offsets.reshape(-1)
 
     for layer_i, layer in enumerate(model.layers):
-        normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
-                              eps=cfg.rms_norm_eps)
-        q, k, v = qkv_heads(layer.self_attn, cfg, normed, (n, t_pad))
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        write_kv(flat_pool, k.reshape(n * t_pad, nkv, -1),
-                 v.reshape(n * t_pad, nkv, -1),
-                 _layer_tables(flat_blocks, layer_i, nb), flat_offsets,
-                 scales=flat_sc)
-        tables = _layer_tables(block_tables, layer_i, nb).clamp_min(0)
-        # [N, H_kv, MAXB*BS, D]; a quantized pool's come back dequantized
-        # in fp32, and K1 attends q against them in (at least) fp32, as the
-        # JAX prefill does: a bf16 q widens exactly, and the output returns
-        # to q's dtype
-        kk, vv = gather_kv(flat_pool, tables, nkv, flat_sc)
-        qh = q.transpose(1, 2).contiguous()          # [N, H, T, D]
-        acc = qh.dtype if flat_sc is None else torch.promote_types(
-            qh.dtype, torch.float32)
-        attn, _ = flash_attention_fwd(qh.to(acc), kk.to(acc).contiguous(),
-                                      vv.to(acc).contiguous(), bias)
-        attn = attn.to(qh.dtype).transpose(1, 2).reshape(n, t_pad, -1)
-        hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj, attn)
-        hidden = mlp_residual(layer, cfg, hidden)
+        with span("paged_model.prefill.layer"):
+            normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
+                                  eps=cfg.rms_norm_eps)
+            q, k, v = qkv_heads(layer.self_attn, cfg, normed, (n, t_pad))
+            q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+            write_kv(flat_pool, k.reshape(n * t_pad, nkv, -1),
+                     v.reshape(n * t_pad, nkv, -1),
+                     _layer_tables(flat_blocks, layer_i, nb), flat_offsets,
+                     scales=flat_sc)
+            tables = _layer_tables(block_tables, layer_i, nb).clamp_min(0)
+            # [N, H_kv, MAXB*BS, D]; a quantized pool's come back dequantized
+            # in fp32, and K1 attends q against them in (at least) fp32, as the
+            # JAX prefill does: a bf16 q widens exactly, and the output returns
+            # to q's dtype
+            kk, vv = gather_kv(flat_pool, tables, nkv, flat_sc)
+            qh = q.transpose(1, 2).contiguous()          # [N, H, T, D]
+            acc = qh.dtype if flat_sc is None else torch.promote_types(
+                qh.dtype, torch.float32)
+            attn, _ = flash_attention_fwd(qh.to(acc), kk.to(acc).contiguous(),
+                                          vv.to(acc).contiguous(), bias)
+            attn = attn.to(qh.dtype).transpose(1, 2).reshape(n, t_pad, -1)
+            hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj, attn)
+            hidden = mlp_residual(layer, cfg, hidden)
     return cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
 
 
@@ -151,12 +153,14 @@ def prefill(model, pool, ids, positions, slot_blocks, slot_offsets,
     """Batched prefill of uncached prompt suffixes; writes ``pool`` in
     place. ids/positions/slot_blocks/slot_offsets: [N, T_pad];
     block_tables: [N, MAXB]; ctx_len/true_len: [N] (0 = dead lane).
-    Returns last-real-token logits [N, V]."""
-    hidden = _multi_core(model, pool, ids, positions, slot_blocks,
-                         slot_offsets, block_tables, ctx_len)
-    last = (true_len.long() - 1).clamp_min(0)
-    rows = torch.arange(hidden.shape[0], device=hidden.device)
-    return lm_logits(model, hidden[rows, last])
+    Returns last-real-token logits [N, V]. A ``paged_model.prefill`` span
+    (``spans.span``), with one ``paged_model.prefill.layer`` a layer."""
+    with span("paged_model.prefill"):
+        hidden = _multi_core(model, pool, ids, positions, slot_blocks,
+                             slot_offsets, block_tables, ctx_len)
+        last = (true_len.long() - 1).clamp_min(0)
+        rows = torch.arange(hidden.shape[0], device=hidden.device)
+        return lm_logits(model, hidden[rows, last])
 
 
 @torch.no_grad()
