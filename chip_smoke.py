@@ -946,6 +946,7 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
             pipeline_decode=pipeline, device=dev)
         t1 = time.perf_counter()
         eng.horizon_graph()          # capture the decode step: set-up
+        eng.prefill_graphs()         # and a prefill a bucket
         torch.cuda.synchronize()
         return eng, time.perf_counter() - t1
 
@@ -953,7 +954,7 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
     m0 = eng.metrics()
     phase(f"engine ready ({label}): {n_params} params, weights "
           f"{m0['weight_bytes']} bytes, pool {m0['pool_bytes']} bytes, "
-          f"decode step captured in {capture_s:.2f} s "
+          f"decode step and prefill buckets captured in {capture_s:.2f} s "
           f"({time.perf_counter() - t0:.1f} s)")
     rng = np.random.default_rng(0)
     wave1 = [rng.integers(0, cfg.vocab_size, rng.integers(300, 501)).tolist()

@@ -291,6 +291,9 @@ def test_engine_greedy_matches_jax(jax_model, torch_model, name):
     prompts, kw = SCENARIOS[name]
     jout, tout, teng = _run_both(jax_model, torch_model, prompts, **kw)
     assert tout == jout
+    # every call through its bucket's PrefillGraph, eager on the CPU
+    assert teng.counters["prefill_graph_calls"] == 0 < \
+        teng.counters["prefill_calls"]
     if name == "preemption":
         assert teng.counters["preemptions"] > 0
     assert teng.kv.num_free() == teng.kv.num_blocks

@@ -6,7 +6,10 @@ match, preemption, finished harvest) around the paged model steps:
 
 - prefill: up to ``prefill_group`` admissions per call, each suffix padded
   to the group's bucket; suffixes longer than the largest bucket are
-  chunked across calls;
+  chunked across calls. Each call is its bucket's
+  ``paged_model.PrefillGraph``, fed from its pinned staging set: on the
+  card, a replay of one captured CUDA graph of the forward; on the CPU, the
+  same forward run eagerly;
 - decode: all active sequences in one ``max_batch``-wide batch (dead lanes
   masked), up to ``decode_horizon`` tokens per tick, each tick one
   ``paged_model.HorizonGraph``: on the card, replays of one captured CUDA
@@ -27,7 +30,8 @@ While a ``torch.profiler`` session records, the scheduler's phases are
 spans in its trace (``spans.span``): ``engine.step`` around a step;
 inside it ``engine.admit``, ``engine.prefill`` (``engine.prefill.inputs``,
 ``paged_model.prefill`` with one ``paged_model.prefill.layer`` a layer,
-``engine.prefill.read``) and ``engine.tick`` (``engine.tick.dispatch``
+``engine.prefill.read``; on the card the layers' spans are recorded once,
+when the graphs are captured) and ``engine.tick`` (``engine.tick.dispatch``
 around ``engine.tick.launch``, ``engine.tick.harvest``, and
 ``engine.tick.wait`` around each wait on a tick's event). The times and
 counts behind the per-layer metrics are in ``counters`` always, on
@@ -154,6 +158,8 @@ class ContinuousBatchEngine:
         self._sampling = paged_model.sampling_tensors(
             self.device, self.temperature, self.top_p, self.min_p)
         self._graph = None        # the decode tick, built at the first one
+        # bucket -> its PrefillGraph, built at the first prefill call
+        self._prefill_graphs = {}
         self._stages = []         # its two sets of staging buffers
         self._inflight = None
         self.pool = paged_model.init_pool(self.cfg, num_blocks, block_size,
@@ -170,6 +176,7 @@ class ContinuousBatchEngine:
             "decode_ticks": 0, "chained_ticks": 0, "preemptions": 0,
             "requests_admitted": 0, "queue_wait_ns": 0,
             "requests_prefilled": 0, "prefill_wait_ns": 0,
+            "prefill_graph_calls": 0,
             "prefill_ns": 0, "prefill_dispatch_ns": 0,
             "prefill_tokens": 0, "prefill_slots": 0,
             "prefill_attn_pairs": 0, "prefill_ctx_tokens": 0,
@@ -197,9 +204,12 @@ class ContinuousBatchEngine:
         - ``prefill_calls``, ``prefill_ns``: prefill calls and the wall
           time of each, from its inputs to its token appends
           (``prefill_call_ms``, ``prefill_time_share.tok_s``);
+          ``prefill_graph_calls``: of those calls, the ones a captured
+          graph's replay served, every one on the card and none on the CPU
+          (``prefill_graph_share``, ``prefill_graph_share.tok_s``);
           ``prefill_dispatch_ns``: of that, from the call's start until the
-          forward has returned, before the read-back waits for the device
-          (``prefill_dispatch_share``).
+          replay is launched (on the CPU: the forward has returned), before
+          the read-back waits for the device (``prefill_dispatch_share``).
         - ``prefill_tokens``, ``prefill_slots``: real suffix tokens, and
           the ``prefill_group`` x bucket slots each call padded them to
           (``padded_token_share``).
@@ -217,9 +227,6 @@ class ContinuousBatchEngine:
         self._first_token_max_ns = 0
         self._first_tokens = 0
         self._waited_ns = 0          # in the tick running, on its events
-
-    def _put(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(x).to(self.device)
 
     # -- API ------------------------------------------------------------------
     def submit(self, prompt: Sequence[int], *,
@@ -376,10 +383,12 @@ class ContinuousBatchEngine:
                     c["prefill_wait_ns"] += t0 - state.t_admitted
                     state.t_admitted = None
             with span("engine.prefill.inputs"):
-                inputs, suffixes = self._prefill_inputs(states)
-            logits = paged_model.prefill(self.model, self.pool, *inputs)
+                graph, suffixes = self._prefill_inputs(states)
+                graph.start()
+            logits = graph.run()
             t_dispatched = clock()
             with span("engine.prefill.read"):
+                # the next replay overwrites the logits: read them first
                 next_tokens = self._pick_tokens(logits)
                 for i, state in enumerate(states):
                     done = state.num_cached_tokens + len(suffixes[i])
@@ -390,14 +399,31 @@ class ContinuousBatchEngine:
                         state.num_cached_tokens = done
                         self.needs_prefill.appendleft(state)
         c["prefill_calls"] += 1
+        c["prefill_graph_calls"] += graph.graph is not None
         c["prefill_dispatch_ns"] += t_dispatched - t0
         c["prefill_ns"] += clock() - t0
 
+    def prefill_graphs(self):
+        """One ``paged_model.PrefillGraph`` a prefill bucket, built at the
+        first prefill call; on the card their captures share one memory
+        pool (each call's logits are read before the next replay)."""
+        if not self._prefill_graphs:
+            mempool = (torch.cuda.graph_pool_handle()
+                       if self.device.type == "cuda" else None)
+            self._prefill_graphs = {
+                b: paged_model.PrefillGraph(
+                    self.model, self.pool, self.prefill_group, b,
+                    self.max_blocks_per_seq, mempool=mempool)
+                for b in self.prefill_buckets}
+        return self._prefill_graphs
+
     def _prefill_inputs(self, states):
-        """The call's padded device inputs, ``[prefill_group, bucket]``
-        (rows past ``states`` dead), and each state's suffix; counts the
-        call's tokens, slots and attention work."""
-        n_pad = self.prefill_group
+        """Write the call's padded inputs, ``[prefill_group, bucket]``, into
+        its bucket's staging set, every row rewritten (rows past ``states``
+        dead); returns that bucket's graph and each state's suffix, and
+        counts the call's tokens, slots and attention work. The set is free
+        to write: the read-back of the last call that used it waited for
+        the device to pass that call's copy."""
         cap = self.prefill_buckets[-1]
         bs = self.block_size
         suffixes = [s.tokens[s.num_cached_tokens:
@@ -405,36 +431,30 @@ class ContinuousBatchEngine:
                     for s in states]
         t_pad = _bucket(max(len(sf) for sf in suffixes),
                         self.prefill_buckets)
-        ids = np.zeros((n_pad, t_pad), dtype=np.int64)
-        positions = np.zeros((n_pad, t_pad), dtype=np.int64)
-        slot_blocks = np.full((n_pad, t_pad), -1, dtype=np.int32)
-        slot_offsets = np.zeros((n_pad, t_pad), dtype=np.int64)
-        tables = np.full((n_pad, self.max_blocks_per_seq), -1, dtype=np.int32)
-        ctx_len = np.zeros(n_pad, dtype=np.int64)
-        true_len = np.zeros(n_pad, dtype=np.int64)
+        graph = self.prefill_graphs()[t_pad]
+        x = {name: t.numpy() for name, t in graph.stage.items()}
+        for name, (fill, _) in graph.DEAD.items():
+            x[name].fill(fill)
         pairs = ctx = 0
         for i, (state, suffix) in enumerate(zip(states, suffixes)):
             cached, t = state.num_cached_tokens, len(suffix)
-            ids[i, :t] = suffix
-            positions[i] = np.minimum(cached + np.arange(t_pad),
-                                      cached + max(t - 1, 0))
+            x["ids"][i, :t] = suffix
+            x["positions"][i] = np.minimum(cached + np.arange(t_pad),
+                                           cached + max(t - 1, 0))
             pos = cached + np.arange(t)
-            slot_blocks[i, :t] = np.asarray(state.block_table)[pos // bs]
-            slot_offsets[i, :t] = pos % bs
-            tables[i, :len(state.block_table)] = state.block_table
-            ctx_len[i] = state.prefill_len
-            true_len[i] = t
+            x["slot_blocks"][i, :t] = np.asarray(state.block_table)[pos // bs]
+            x["slot_offsets"][i, :t] = pos % bs
+            x["tables"][i, :len(state.block_table)] = state.block_table
+            x["ctx_len"][i] = state.prefill_len
+            x["true_len"][i] = t
             pairs += t * cached + t * (t + 1) // 2   # keys: position + 1
             ctx += cached + t
         c = self.counters
-        c["prefill_tokens"] += int(true_len.sum())
-        c["prefill_slots"] += n_pad * t_pad
+        c["prefill_tokens"] += int(x["true_len"].sum())
+        c["prefill_slots"] += self.prefill_group * t_pad
         c["prefill_attn_pairs"] += pairs
         c["prefill_ctx_tokens"] += ctx
-        inputs = [self._put(x) for x in (ids, positions, slot_blocks,
-                                         slot_offsets, tables, ctx_len,
-                                         true_len)]
-        return inputs, suffixes
+        return graph, suffixes
 
     def _pick_tokens(self, logits) -> np.ndarray:
         if self.do_sample:

@@ -336,14 +336,58 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
     return c.out, c.tokens, c.eos_dead
 
 
-# the kernels' wrappers that a decode step may call, and their counters
+# the kernels' wrappers that a captured decode step or prefill may call,
+# and their counters
 _COUNTED = (paged_decode, paged_decode_int8, paged_decode_int4, int8_matmul,
-            int4_matmul)
+            int4_matmul, flash_attention_fwd)
 
 
 def _launch_counts() -> dict:
     return {(fn, name): getattr(fn, name) for fn in _COUNTED
             for name in ("launches", "tc_launches") if hasattr(fn, name)}
+
+
+def _capture(fn, device, generator=None, pool=None):
+    """``(graph, per_replay)``: ``fn`` captured as a CUDA graph on a stream
+    of its own, into the memory pool ``pool`` (None: a private one).
+
+    ``fn`` first runs once eagerly on that stream, on inputs that change
+    nothing (dead lanes or rows), so that whatever a first call creates
+    exists when the capture starts: the kernels' library and their
+    shared-memory attributes, cuBLAS's handle and workspace of that stream,
+    the split-K workspace that ``ops.quant_matmul`` keys by (device,
+    stream). ``generator``'s state is registered with the graph, so each
+    replay draws fresh numbers from it, and restored after the warm-up. A
+    failed capture raises.
+
+    The kernels' wrappers count launches in Python, which a replay never
+    calls: the counts the capture added are taken back, and ``per_replay``
+    holds what :func:`_replay` adds once per replay instead."""
+    gen_state = None if generator is None else generator.get_state()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    before = _launch_counts()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        fn()
+    per_replay = {}
+    for (wrapper, name), n in before.items():
+        per_replay[(wrapper, name)] = getattr(wrapper, name) - n
+        setattr(wrapper, name, n)          # the capture launched nothing
+    torch.cuda.current_stream(device).wait_stream(stream)
+    if gen_state is not None:
+        generator.set_state(gen_state)
+    return graph, per_replay
+
+
+def _replay(graph, per_replay):
+    graph.replay()
+    for (fn, name), k in per_replay.items():
+        setattr(fn, name, getattr(fn, name) + k)
 
 
 class HorizonGraph:
@@ -353,22 +397,12 @@ class HorizonGraph:
     never reallocated, so the graph may hold its pointers).
 
     On a CUDA device the step is captured once as a CUDA graph at
-    construction and a tick replays it ``n`` times: one launch of the graph
-    a step, and no host work between steps. Before the capture the step
-    runs once eagerly on the capture stream with every lane dead (its
-    writes change nothing), so that whatever a first call creates exists
-    when the capture starts: the kernels' library and their shared-memory
-    attributes, cuBLAS's handle and workspace of that stream, the split-K
-    workspace that ``ops.quant_matmul`` keys by (device, stream). The
-    generator's state is registered with the graph, so each replay draws
-    fresh numbers from it, and restored after the warm-up. A failed capture
-    raises; there is no eager fallback on the card. On the CPU there is no
-    graph, and :meth:`run` calls the same step eagerly.
-
-    The kernels' wrappers count launches in Python, which a replay never
-    calls: the counts the capture added are taken back and added once per
-    replay instead (``per_replay``). ``logits`` holds the last step's
-    logits (the graph's output buffer on the card)."""
+    construction (:func:`_capture`, warmed up with every lane dead) and a
+    tick replays it ``n`` times: one launch of the graph a step, and no
+    host work between steps. There is no eager fallback on the card. On the
+    CPU there is no graph, and :meth:`run` calls the same step eagerly.
+    ``logits`` holds the last step's logits (the graph's output buffer on
+    the card)."""
 
     def __init__(self, model, pool, batch: int, max_blocks: int,
                  horizon: int, *, do_sample: bool = False, eos: int = -1,
@@ -382,33 +416,13 @@ class HorizonGraph:
         self.per_replay = {}
         self.logits = None
         if device.type == "cuda":
-            self._capture(device)
+            self.graph, self.per_replay = _capture(self._step, device,
+                                                   generator)
 
     @torch.no_grad()
     def _step(self):
         self.logits = _step(self.model, self.pool, self.c, self.do_sample,
                             self.eos, self.generator, self.samp)
-
-    def _capture(self, device):
-        gen_state = None if self.generator is None else \
-            self.generator.get_state()
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            self._step()
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        before = _launch_counts()
-        with torch.cuda.graph(graph, stream=stream):
-            self._step()
-        for (fn, name), n in before.items():
-            self.per_replay[(fn, name)] = getattr(fn, name) - n
-            setattr(fn, name, n)          # the capture launched nothing
-        torch.cuda.current_stream(device).wait_stream(stream)
-        if gen_state is not None:
-            self.generator.set_state(gen_state)
-        self.graph = graph
 
     def start(self, positions, tables, live, budget, tokens=None,
               non_blocking: bool = False):
@@ -425,8 +439,74 @@ class HorizonGraph:
         for _ in range(n):
             if self.graph is None:
                 self._step()
-                continue
-            self.graph.replay()
-            for (fn, name), k in self.per_replay.items():
-                setattr(fn, name, getattr(fn, name) + k)
+            else:
+                _replay(self.graph, self.per_replay)
         return self.c.out, self.c.tokens, self.c.eos_dead
+
+
+class PrefillGraph:
+    """The engine's prefill call for one shape: :func:`prefill` over static
+    inputs of ``group`` rows, ``bucket`` tokens and ``max_blocks`` table
+    entries, bound to one ``pool`` (written in place, never reallocated).
+
+    ``stage`` holds the inputs on the host (pinned on the card), in
+    :func:`prefill`'s order and dtypes, each filled as a dead row is
+    (:data:`DEAD`); a caller writes a call into it, and :meth:`start`
+    copies it up to the static inputs without waiting for the device.
+    On a CUDA device the forward and the last real token's ``lm_logits``
+    are captured once at construction (:func:`_capture`, warmed up with
+    every row dead, into ``mempool`` where given: graphs that share one
+    must have each call's logits read before the next replay), and
+    :meth:`run` replays them: the same kernels (K1, K8/K9 on a quantized
+    model) and the same ``write_kv``/``gather_kv`` as the eager call. There
+    is no eager fallback on the card. On the CPU there is no graph, and
+    :meth:`run` calls :func:`prefill` on the static inputs."""
+
+    # name -> (value of a dead row, dtype); rows: [group, bucket] for the
+    # first four, [group, max_blocks] for the tables, [group] for the rest
+    DEAD = {"ids": (0, torch.int64), "positions": (0, torch.int64),
+            "slot_blocks": (-1, torch.int32), "slot_offsets": (0, torch.int64),
+            "tables": (-1, torch.int32), "ctx_len": (0, torch.int64),
+            "true_len": (0, torch.int64)}
+
+    def __init__(self, model, pool, group: int, bucket: int,
+                 max_blocks: int, *, mempool=None):
+        device = pool_parts(pool)[0].device
+        cuda = device.type == "cuda"
+        self.model, self.pool = model, pool
+        shapes = {"tables": (group, max_blocks), "ctx_len": (group,),
+                  "true_len": (group,)}
+        self.stage, self.inputs = {}, {}
+        for name, (fill, dtype) in self.DEAD.items():
+            shape = shapes.get(name, (group, bucket))
+            self.stage[name] = torch.full(shape, fill, dtype=dtype,
+                                          pin_memory=cuda)
+            self.inputs[name] = torch.full(shape, fill, dtype=dtype,
+                                           device=device)
+        self.graph = None
+        self.per_replay = {}
+        self.logits = None
+        if cuda:
+            self.graph, self.per_replay = _capture(self._forward, device,
+                                                   pool=mempool)
+
+    def _forward(self):
+        self.logits = prefill(self.model, self.pool, *self.inputs.values())
+
+    def start(self):
+        """Copy ``stage`` up to the static inputs: on the card without
+        waiting, so ``stage`` may be written again only once the device has
+        passed this copy (the caller's read-back of the logits does)."""
+        cuda = self.graph is not None
+        for name, x in self.inputs.items():
+            x.copy_(self.stage[name], non_blocking=cuda)
+
+    def run(self) -> torch.Tensor:
+        """The call's last-real-token logits ``[group, V]``; on the card
+        the graph's output buffer, which the next replay overwrites."""
+        if self.graph is None:
+            self._forward()
+        else:
+            with span("paged_model.prefill"):
+                _replay(self.graph, self.per_replay)
+        return self.logits
