@@ -1,7 +1,7 @@
 """K1, the flash forward, in static-cache generation: each traced call's
 causal prefill and its Lq = 1 steps over their live keys (not the whole
-static buffer), each launch bound by bytes over 3.35 TB/s or FLOPs over
-989 TFLOP/s, against K1's device time."""
+static buffer), in every attention layer, each launch bound by bytes over
+3.35 TB/s or FLOPs over 989 TFLOP/s, against K1's device time."""
 
 from .. import trace as T, work
 
@@ -22,4 +22,4 @@ def read(run, trace, cell):
     bound = work.bound_s(*work.flash_prefill(*args, p, d["hd"]))
     for pos in range(p, p + n - 1):
         bound += work.bound_s(*work.flash_step(*args, pos + 1, d["hd"]))
-    return 100.0 * bound * d["layers"] / secs
+    return 100.0 * bound * d["attn_layers"] / secs

@@ -1,9 +1,8 @@
 """K8, the int8 weight-only matmul, in the replayed decode step alone: per
 replay, every int8 weight and its scales read once plus the activations,
 over 3.35 TB/s, against the device time of the K8 kernels that decode
-replays ran (``_replays``). ``k8_roofline.tok_s`` reads every K8 under
-``cudaGraphLaunch`` as a decode replay's, the captured prefill's too; this
-one leaves the prefill's out (``k8_roofline.prefill.tok_s`` reads it)."""
+replays ran (``_replays``); the captured prefill's K8 is left out
+(``k8_roofline.prefill.tok_s`` reads it)."""
 
 from .. import work
 from ._replays import split

@@ -1,6 +1,7 @@
 """What the benchmark takes from the program under test,
-``vyomai_tpu_torch``: its config, model, quantizer, serving engine and
-``generate_hf``, built from a configuration file and seeded weights.
+``vyomai_tpu_torch``: its model (through the configuration's family),
+quantizer, serving engine and ``generate_hf``, built from a configuration
+file and seeded weights.
 
 ``precision="control"`` builds the configuration's ``control``: the
 program's own path one precision step lower (its quantized weights and
@@ -9,16 +10,10 @@ pool), which the check of ``correct`` has to fail.
 
 import torch
 
-from . import weights as W
+from . import spec, weights as W
 
 POOL_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                "int8": torch.int8, "int4": "int4"}
-
-
-def port_config(cfg: dict):
-    from vyomai_tpu_torch import QwenConfig
-    fields = QwenConfig.__dataclass_fields__
-    return QwenConfig(**{k: v for k, v in cfg.items() if k in fields})
 
 
 def precision(cfg: dict, which: str) -> dict:
@@ -33,15 +28,16 @@ def precision(cfg: dict, which: str) -> dict:
 
 @torch.no_grad()
 def build_model(cfg: dict, seed: int, device, which: str = "program"):
-    """The port's ``ModelForCausalLM`` holding the seeded weights, made on
-    ``device`` one group (one buffer) at a time, then quantized as the
-    configuration says."""
-    from vyomai_tpu_torch import ModelForCausalLM, quantize_model
+    """The family's port model (``families/<name>.py``) holding the seeded
+    weights, made on ``device`` one group (one buffer) at a time, then
+    quantized as the configuration says."""
+    from vyomai_tpu_torch import quantize_model
     prec = precision(cfg, which)
     w = prec["weights"]
     dtype = W.DTYPES[w["dtype"]]
-    model = ModelForCausalLM(port_config(cfg), device=device, dtype=dtype)
-    for group in W.groups(cfg):
+    fam = spec.family(cfg)
+    model = fam.port_model(cfg, device, dtype)
+    for group in fam.groups(cfg):
         for name, t in W.make_group(cfg, seed, group, device, dtype,
                                     w["init_std"]).items():
             model.get_parameter(name).data = t

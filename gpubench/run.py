@@ -46,7 +46,6 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     """Set up, measure, check. Returns ``(result, checks, run)``."""
     import torch
     from . import check, spec, stats
-    from .reference.model import served_gaps
     from .trace import Tracer
     from .weights import DTYPES
     t_start = T_START if t_start is None else t_start
@@ -78,9 +77,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     gc.unfreeze()
     w = cfg["weights"]
     t_check = time.monotonic()
-    gaps = served_gaps(cfg, seed, seqs, device,
-                       weight_dtype=DTYPES[w["dtype"]], std=w["init_std"],
-                       quant=cfg["reference"]["quant"])
+    gaps = spec.family(cfg).served_gaps(
+        cfg, seed, seqs, device, weight_dtype=DTYPES[w["dtype"]],
+        std=w["init_std"], quant=cfg["reference"]["quant"])
     check_s = time.monotonic() - t_check
     checks = check.judge(run, cfg["vocab_size"], gaps, limits)
     metrics, bad = {}, []

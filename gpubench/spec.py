@@ -58,6 +58,21 @@ def entry(name: str):
     return importlib.import_module(f"gpubench.entries.{name}")
 
 
+def family(cfg: dict):
+    """The module ``families/<name>.py`` of the configuration's model
+    family, named by its top-level ``"family"`` key (default ``dense``)."""
+    name = cfg.get("family", "dense")
+    module = f"gpubench.families.{name}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise LookupError(
+            f"configuration {cfg.get('name')!r} names the model family "
+            f"{name!r}, and there is no gpubench/families/{name}.py") from None
+
+
 def _by_name(package: str) -> dict:
     pkg = importlib.import_module(package)
     mods = {}

@@ -98,16 +98,17 @@ def test_prefill_metric_is_none_without_its_counters(name):
 
 
 def test_k8_decode_roofline_reads_the_accepted_metric_without_a_prefill():
-    """Where no replay ran K1, the decode reading is ``k8_roofline.tok_s``'s
-    own."""
+    """Where no replay ran K1, every K8 under ``cudaGraphLaunch`` is a
+    decode replay's, and the reading is the decode steps' own count: each
+    of the two replays' ``work.weight_only_step`` at the run's lanes over
+    their K8 seconds (0.002 + 0.003 each)."""
     cell = tiny.cell("chat")
-    mods = spec.layer_metrics()
     decode_only = {"kernels": [k for k in _trace()["kernels"]
                                if k[4] in (1, 2)]}
-    assert mods["k8_roofline.decode.tok_s"].read(
+    flops, nbytes = work.weight_only_step(cell["config"], 4, 8)
+    assert spec.layer_metrics()["k8_roofline.decode.tok_s"].read(
         _run(), decode_only, cell) == pytest.approx(
-        mods["k8_roofline.tok_s"].read(_run(), decode_only, cell),
-        rel=1e-12)
+        100.0 * 2 * work.bound_s(flops, nbytes) / 0.010, rel=1e-12)
 
 
 def test_entries_name_the_cells_whose_kernels_they_read():
@@ -116,4 +117,8 @@ def test_entries_name_the_cells_whose_kernels_they_read():
         "qwen3-0.6b.chat"]
     for name in ("k8_roofline.decode.tok_s", "k8_roofline.prefill.tok_s"):
         assert entries[name]["workloads"] == ["mistral-7b-v0.3-int8.batch"]
-        assert entries[name]["layer"] == entries["k8_roofline.tok_s"]["layer"]
+        assert entries[name]["layer"] == "kernel K8 (int8 weight-only matmul)"
+    # the readers they replaced, silent or miscounting since the prefill
+    # graph, are gone from the entries and the metrics alike
+    for name in ("k1_roofline.ttft", "k8_roofline.tok_s"):
+        assert name not in entries and name not in spec.layer_metrics()

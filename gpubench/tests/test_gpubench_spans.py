@@ -1,12 +1,11 @@
 """The per-layer metrics read from the engine's span-edge counters
-(``program_span``, before the traced slice) and K1's prefill roofline
-(inside it, against the trace): each on a synthetic run gives its exact
-value, and None where its counters are absent (a program without them); a
-tiny traced CPU run reports every ``program_span`` metric."""
+(``program_span``, before the traced slice): each on a synthetic run gives
+its exact value, and None where its counters are absent (a program without
+them); a tiny traced CPU run reports every ``program_span`` metric."""
 
 import pytest
 
-from gpubench import run as R, spec, work
+from gpubench import run as R, spec
 from gpubench.tests import tiny
 
 B = spec.benchmark()
@@ -27,7 +26,6 @@ INSIDE = {"queue_wait_ns": 9_000_000, "requests_admitted": 1,
           "prefill_attn_pairs": 200_000, "prefill_ctx_tokens": 4_000,
           "tick_host_ns": 9, "decode_ticks": 1}
 AFTER = {k: 3 * v + 1 for k, v in BEFORE.items()}
-K1_S = 0.002     # seconds of K1 launched by cudaLaunchKernel
 
 
 def _run(counters=True):
@@ -44,21 +42,11 @@ def _run(counters=True):
 
 def _trace():
     return {"kernels": [
-        ("vyomai::flash_fwd_kernel_tc<128>", 1.0, 1.0 + K1_S,
+        ("vyomai::flash_fwd_kernel_tc<128>", 1.0, 1.002,
          "cudaLaunchKernel", 1),
-        # a graph replay's kernels are the tick's, not the prefill's
         ("vyomai::flash_fwd_kernel_tc<128>", 2.0, 2.5, "cudaGraphLaunch", 2),
         ("vyomai::paged_decode_split_kernel", 3.0, 3.1,
          "cudaGraphLaunch", 2)]}
-
-
-def _k1_expected(cfg):
-    d = work.dims(cfg)
-    flops = 4.0 * d["nh"] * d["hd"] * d["layers"] * 200_000
-    nbytes = d["layers"] * (2 * d["nh"] * d["hd"] * 2 * 240
-                            + 2 * d["nkv"] * d["hd"] * 2 * 4_000)
-    return 100.0 * max(flops / work.PEAK_FLOPS_BF16,
-                       nbytes / work.HBM_BYTES_PER_S) / K1_S
 
 
 # read before the slice, which starts 20 s into the window
@@ -73,28 +61,19 @@ EXPECTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(EXPECTED) + ["k1_roofline.ttft"])
+@pytest.mark.parametrize("name", sorted(EXPECTED))
 def test_metric_reads_its_counters_exactly(name):
     mod = spec.layer_metrics()[name]
     cell = tiny.cell("chat")
-    want = _k1_expected(cell["config"]) if name == "k1_roofline.ttft" \
-        else EXPECTED[name]
-    assert mod.read(_run(), _trace(), cell) == pytest.approx(want, rel=1e-12)
+    assert mod.read(_run(), _trace(), cell) == pytest.approx(
+        EXPECTED[name], rel=1e-12)
 
 
-@pytest.mark.parametrize("name", sorted(EXPECTED) + ["k1_roofline.ttft"])
+@pytest.mark.parametrize("name", sorted(EXPECTED))
 def test_metric_is_none_without_its_counters(name):
     mod = spec.layer_metrics()[name]
     assert mod.read(_run(counters=False), _trace(), tiny.cell("chat")) \
         is None
-
-
-def test_k1_prefill_roofline_is_none_without_a_trace_or_eager_k1():
-    mod = spec.layer_metrics()["k1_roofline.ttft"]
-    cell = tiny.cell("chat")
-    assert mod.read(_run(), None, cell) is None
-    graph_only = {"kernels": _trace()["kernels"][1:]}
-    assert mod.read(_run(), graph_only, cell) is None
 
 
 def test_span_entries_name_the_cells_their_metrics_read():

@@ -171,19 +171,10 @@ def _host_at(host, starts, t: float) -> str:
     return "(host Python, between profiled ops)"
 
 
-def kernel_seconds(trace: dict, names, launcher: str = None) -> float:
-    """Device seconds of the kernels whose name holds one of ``names``
-    (and, given, that ``launcher`` launched)."""
-    return sum(b - a for n, a, b, via, _ in trace["kernels"]
-               if any(k in n for k in names)
-               and (launcher is None or launcher in via))
-
-
-def launches(trace: dict, names, launcher: str = None) -> int:
-    """How many distinct launch calls ran such kernels."""
-    return len({c for n, _, _, via, c in trace["kernels"]
-                if any(k in n for k in names)
-                and (launcher is None or launcher in via)})
+def kernel_seconds(trace: dict, names) -> float:
+    """Device seconds of the kernels whose name holds one of ``names``."""
+    return sum(b - a for n, a, b, _, _ in trace["kernels"]
+               if any(k in n for k in names))
 
 
 def idle_share(trace: dict) -> Optional[float]:

@@ -7,6 +7,8 @@ input byte read once, each output byte written once, the FLOPs of the live
 peak rate.
 """
 
+from . import spec
+
 # One H100 SXM's published peaks at 700 W (NVIDIA's data sheet, dense):
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS_BF16 = 989e12      # tensor cores, bf16 in, fp32 accumulate
@@ -21,30 +23,30 @@ def bound_s(flops: float, nbytes: float,
 
 
 def dims(cfg: dict) -> dict:
+    """The widths, ``layers`` and, from the configuration's family,
+    ``attn_layers``: the layers that hold KV and run attention."""
     h, nh = cfg["hidden_size"], cfg["num_attention_heads"]
     return {"h": h, "i": cfg["intermediate_size"], "nh": nh,
             "nkv": cfg["num_key_value_heads"],
             "hd": cfg.get("head_dim") or h // nh,
-            "v": cfg["vocab_size"], "layers": cfg["num_hidden_layers"]}
+            "v": cfg["vocab_size"], "layers": cfg["num_hidden_layers"],
+            "attn_layers": spec.family(cfg).attn_layers(cfg)}
 
 
 def linears(cfg: dict):
-    """``(n_out, k_in)`` of every matmul weight one token passes through:
-    the layers' projections, then the head (tied or not)."""
-    d = dims(cfg)
-    h, i, nh, nkv, hd = d["h"], d["i"], d["nh"], d["nkv"], d["hd"]
-    per_layer = [(nh * hd, h), (nkv * hd, h), (nkv * hd, h), (h, nh * hd),
-                 (i, h), (i, h), (h, i)]
-    return per_layer * d["layers"] + [(d["v"], h)]
+    """``(n_out, k_in)`` of every matmul weight one token passes through,
+    the head (tied or not) last, as the configuration's family lists
+    them."""
+    return spec.family(cfg).linears(cfg)
 
 
 def token_flops(cfg: dict, ctx: int) -> float:
     """Model FLOPs of one token that attends ``ctx`` keys: 2 per weight it
-    multiplies (head included), and 4 * heads * head_dim * ctx a layer for
-    the scores and the weighted sum."""
+    multiplies (head included), and 4 * heads * head_dim * ctx in each
+    attention layer for the scores and the weighted sum."""
     d = dims(cfg)
     mats = sum(n * k for n, k in linears(cfg))
-    return 2.0 * mats + 4.0 * d["layers"] * d["nh"] * d["hd"] * ctx
+    return 2.0 * mats + 4.0 * d["attn_layers"] * d["nh"] * d["hd"] * ctx
 
 
 def prompt_flops(cfg: dict, start: int, end: int) -> float:
@@ -54,16 +56,16 @@ def prompt_flops(cfg: dict, start: int, end: int) -> float:
     keys = (end * (end + 1) - start * (start + 1)) // 2
     d = dims(cfg)
     return (2.0 * sum(a * b for a, b in linears(cfg)) * n
-            + 4.0 * d["layers"] * d["nh"] * d["hd"] * keys)
+            + 4.0 * d["attn_layers"] * d["nh"] * d["hd"] * keys)
 
 
 def paged_decode(cfg: dict, ctx: int, pool: str, block_size: int,
                  act: str = "bfloat16"):
     """``(flops, bytes)`` of one lane's attention over ``ctx`` cached
-    tokens in one decode step, all layers: q and out, the live tokens' K
-    and V rows (and an int8 pool's one fp32 scale per row, an int4 pool's
-    one per row and kv head), the block-table entries they sit in and the
-    context length."""
+    tokens in one decode step, every attention layer: q and out, the live
+    tokens' K and V rows (and an int8 pool's one fp32 scale per row, an
+    int4 pool's one per row and kv head), the block-table entries they sit
+    in and the context length."""
     d = dims(cfg)
     nh, nkv, hd = d["nh"], d["nkv"], d["hd"]
     row = nkv * hd * ELEM[pool]
@@ -73,7 +75,8 @@ def paged_decode(cfg: dict, ctx: int, pool: str, block_size: int,
         row += 4 * nkv
     blocks = -(-ctx // block_size)
     per_layer = (2 * nh * hd * ELEM[act] + 2 * ctx * row + 4 * blocks + 4)
-    return 4.0 * nh * hd * ctx * d["layers"], float(per_layer * d["layers"])
+    n = d["attn_layers"]
+    return 4.0 * nh * hd * ctx * n, float(per_layer * n)
 
 
 def weight_only_step(cfg: dict, m: int, bits: int = 8,
