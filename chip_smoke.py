@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, decoder-training, encoder-family,
-quantized-serving and static-cache generation paths once on one NVIDIA
-card.
+quantized-serving, static-cache generation and mixture-of-experts serving
+paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -90,14 +90,22 @@ and exits non-zero):
 18. generation numerics: 2 layers fp32, card against CPU: the Qwen width's
     cached logits, cached and uncached ``generate``, and
     ``DecoderModel.generate`` (a left-padded batch on the ``"flash"``
-    route on both devices).
+    route on both devices);
+19. LFM2-8B-A1B: K11 (the grouped SwiGLU expert matmul) against its plain
+    version at a decode step's and a prefill call's shapes, with its time,
+    the plain version's, the library's grouped product's and its bound
+    (``phase_k11``); then the model at its published widths through the
+    engine with both captured graphs, the MoE counters exact
+    (``phase_lfm2_serving``).
 
-Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15, 17) zeroes its
+Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15, 17, 19) zeroes its
 kernels' launch counts just before it and reads the counts just after; a
 replay of the captured decode step adds what its capture counted. The line
 before the last holds the kernels' JSON record, with the decode ticks'
 figures, phase 5's tokens/s pipelined and synchronous, K1's generation
-cases and phase 17's figures (``generation``); the last line is
+cases, phase 17's figures (``generation``) and phase 19's
+(``serving_lfm2``; K11's record holds its decode case and ``prefill``);
+the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -1029,6 +1037,175 @@ def phase_serving(torch, np, tt, pm, kernels, card, label="bf16",
         del eng
         torch.cuda.empty_cache()
     del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def k11_library(torch, F, x, src, offsets, w1, w3, w2):
+    """``(fn, name)``: the library's grouped product over the rows in use,
+    ``torch._grouped_mm`` for gate/up and down where this torch has it,
+    else one ``torch.matmul`` an expert."""
+    e, i, _ = w1.shape
+    used = int(offsets[-1])
+    xs = x[src[:used]]
+    if hasattr(torch, "_grouped_mm"):
+        w13 = torch.cat([w1, w3], 1).transpose(1, 2)     # [E, H, 2I]
+        w2t = w2.transpose(1, 2)                          # [E, I, H]
+        ends = offsets[1:].to(torch.int32)
+
+        def grouped():
+            gu = torch._grouped_mm(xs, w13, offs=ends)
+            return torch._grouped_mm(F.silu(gu[:, :i]) * gu[:, i:], w2t,
+                                     offs=ends)
+        try:
+            grouped()
+            return grouped, "torch._grouped_mm"
+        except RuntimeError:
+            pass
+    off = offsets.tolist()
+
+    def loop():
+        for j in range(e):
+            a, b = off[j], off[j + 1]
+            if b > a:
+                h = F.silu(xs[a:b] @ w1[j].t()) * (xs[a:b] @ w3[j].t())
+                h @ w2[j].t()
+    return loop, "torch.matmul per expert"
+
+
+def phase_k11(torch, gm, moe, flush, card):
+    """K11 at LFM2-8B-A1B's expert widths (32 experts, 1,792 x 2,048,
+    bf16) under a random top-4, at a decode step of 128 lanes (512 rows)
+    and a prefill call of 4 x 512 slots, 30 % of them real (the rest route
+    to no expert): against its plain version within
+    ``grouped_matmul.rounding_bound`` at every element, five calls
+    bit-identical, then its time beside the plain version's and the
+    library's grouped product (``k11_library``) and its bound (each expert
+    with a row reads its three matrices once, each row its activations in
+    and out)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    e, i, h, k = 32, 1792, 2048, 4
+    g = torch.Generator(device=dev).manual_seed(19)
+    w1, w3, w2 = (0.02 * torch.randn(s, generator=g, device=dev).to(
+        torch.bfloat16) for s in ((e, i, h), (e, i, h), (e, h, i)))
+    recs = {}
+    for name, tokens, share in (("decode", 128, 1.0), ("prefill", 2048, 0.3)):
+        x = torch.randn(tokens, h, generator=g, device=dev).to(torch.bfloat16)
+        sel = torch.rand(tokens, e, generator=g, device=dev).topk(
+            k, -1).indices
+        valid = torch.arange(tokens, device=dev) < int(share * tokens)
+        _, src, offsets = moe.dispatch(sel, e, valid)
+        args = (x, src, offsets, w1, w3, w2)
+        used = int(offsets[-1])
+        got = gm.grouped_swiglu(*args)
+        want = gm.grouped_swiglu_ref(*args)
+        err = (got[:used].float() - want[:used].float()).abs()
+        tol = gm.rounding_bound(*args)[:used]
+        check(bool((err <= tol).all()), f"K11 {name}: error "
+              f"{float(err.max())} over the bound at "
+              f"{int((err > tol).sum())} elements")
+        check(all(torch.equal(gm.grouped_swiglu(*args)[:used], got[:used])
+                  for _ in range(5)), f"K11 {name}: calls differ")
+        visits = int((offsets[1:] > offsets[:-1]).sum())
+        flops = 2.0 * 3 * i * h * used
+        rec = bound(flops, 3.0 * i * h * 2 * visits + 2.0 * h * 2 * used,
+                    torch.bfloat16)
+        lib, lib_name = k11_library(torch, F, *args)
+        rec.update(rows=used, visits=visits,
+                   ms=cuda_ms(lambda: gm.grouped_swiglu(*args), flush),
+                   plain_ms=cuda_ms(lambda: gm.grouped_swiglu_ref(*args),
+                                    flush, iters=5),
+                   library_ms=cuda_ms(lib, flush), library=lib_name,
+                   max_err=float(err.max()), max_bound=float(tol.max()))
+        phase(f"K11 {name} ({used} rows, {visits} experts): max error "
+              f"{rec['max_err']:.3e} within the bound; {rec['ms']:.4f} ms, "
+              f"{achieved(flops, rec['ms'], rec)}; plain "
+              f"{rec['plain_ms']:.4f} ms, {lib_name} "
+              f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+              f"[{card}]")
+        recs[name] = rec
+        del x, got, want, err, tol
+    del w1, w3, w2
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_lfm2_serving(torch, np, tt, kernels, card):
+    """LFM2-8B-A1B at its published widths (``Lfm2MoeConfig()``, random
+    bf16 weights from a seeded generator) through the engine with both
+    captured graphs (the decode step and a prefill a bucket): 48 requests
+    of 100 to 500 tokens on 32 lanes, so that lanes are refilled, 64 new
+    tokens each. The kernels' launch counts are zeroed just before and
+    read just after; the engine's MoE counters must count every routed
+    row exactly (tokens x 4 chosen experts x 22 MoE layers, in each
+    phase), and every prefill call must replay its graph."""
+    dev = torch.device("cuda")
+    cfg = tt.Lfm2MoeConfig()
+    t0 = time.perf_counter()
+    model = tt.Lfm2MoeForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    lanes, new = 32, 64
+    eng = tt.ContinuousBatchEngine(
+        model, num_blocks=lanes * 37, block_size=16, max_batch=lanes,
+        max_blocks_per_seq=37, max_new_tokens=new, eos_token_id=-1,
+        decode_horizon=8, prefill_group=4, radix_cache=False, device=dev)
+    t1 = time.perf_counter()
+    eng.horizon_graph()
+    eng.prefill_graphs()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t1
+    m0 = eng.metrics()
+    phase(f"engine ready (LFM2-8B-A1B bf16): {n_params} params, weights "
+          f"{m0['weight_bytes']} bytes, pool {m0['pool_bytes']} bytes, "
+          f"decode step and prefill buckets captured in {capture_s:.2f} s "
+          f"({time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(100, 501)
+                            ).tolist() for _ in range(48)]
+    c0 = dict(eng.counters)
+    zero_launches(kernels)
+    outs, wall = serve_waves(torch, eng, (prompts,))
+    launches = kernel_launches(kernels)
+    c = {key: eng.counters[key] - c0[key] for key in c0}
+    routed = cfg.num_experts_per_tok * (cfg.num_hidden_layers
+                                        - cfg.num_dense_layers)
+    check(len(outs) == 48, f"{len(outs)} of 48 requests returned")
+    check(all(len(t) == new for t in outs.values()),
+          f"a request != {new} tokens")
+    check(all(0 <= x < cfg.vocab_size for t in outs.values() for x in t),
+          "token outside the vocab")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel never ran on the main path: {launches}")
+    check(c["prefill_graph_calls"] == c["prefill_calls"] > 0,
+          f"a prefill call ran eagerly: {c['prefill_graph_calls']} of "
+          f"{c['prefill_calls']} replayed")
+    check(c["chained_ticks"] > 0, "no decode tick was chained")
+    check(c["moe_rows_prefill"] == sum(map(len, prompts)) * routed,
+          f"prefill rows {c['moe_rows_prefill']}")
+    check(c["moe_rows_decode"] == 48 * (new - 1) * routed,
+          f"decode rows {c['moe_rows_decode']}")
+    check(0 < c["moe_expert_visits_decode"] <= c["moe_rows_decode"],
+          "decode visits")
+    tokens = sum(len(t) for t in outs.values())
+    res = {"launches": launches, "tok_s": tokens / wall,
+           "capture_s": capture_s,
+           "rows_per_visit_decode": c["moe_rows_decode"]
+           / c["moe_expert_visits_decode"],
+           **{key: c[key] for key in (
+               "prefill_calls", "decode_ticks", "chained_ticks",
+               "moe_rows_decode", "moe_rows_prefill",
+               "moe_expert_visits_decode", "moe_expert_visits_prefill")}}
+    phase(f"serving LFM2-8B-A1B bf16 (pipelined): {tokens} tokens in "
+          f"{wall:.3f} s = {res['tok_s']:.1f} tok/s, prefill calls "
+          f"{c['prefill_calls']} (all graph replays), decode ticks "
+          f"{c['decode_ticks']} (chained {c['chained_ticks']}), MoE rows "
+          f"decode {c['moe_rows_decode']} prefill {c['moe_rows_prefill']}, "
+          f"{res['rows_per_visit_decode']:.2f} rows an expert visit in "
+          f"decode; launches {launches} [{card}]")
+    del eng, model
     torch.cuda.empty_cache()
     return res
 
@@ -2199,7 +2376,7 @@ def main():
     import numpy as np
     import torch
 
-    phase("1/18 device and set-up")
+    phase("1/19 device and set-up")
     check(torch.cuda.is_available(), "no CUDA device: this script runs the "
           "port on an NVIDIA card and does not fall back to the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2229,6 +2406,8 @@ def main():
     from vyomai_tpu_torch.ops import paged_decode as pdm
     from vyomai_tpu_torch.ops import quant_matmul as qm
     from vyomai_tpu_torch.serving import paged_model as pm
+    from vyomai_tpu_torch.layers import moe
+    from vyomai_tpu_torch.ops import grouped_matmul as gm
     t0 = time.perf_counter()
     _build.library()
     phase(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s "
@@ -2251,44 +2430,44 @@ def main():
           f"K4's kernels are not the split-KV pair: {sorted(k4_res)}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    phase("2/18 K4 paged decode vs plain")
+    phase("2/19 K4 paged decode vs plain")
     k4 = phase_decode(torch, pdm, flush, card)
-    phase("3/18 K1 flash forward vs plain")
+    phase("3/19 K1 flash forward vs plain")
     k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
                      flush, card)
     k1_gen = phase_flash_generation(torch, fa, masks, attn, flush, card)
-    phase("4/18 K2/K3 flash backward vs plain")
+    phase("4/19 K2/K3 flash backward vs plain")
     k23 = phase_flash_bwd(torch, fa, flush, card)
     del flush
-    phase("5/18 end-to-end serving")
+    phase("5/19 end-to-end serving")
     served = phase_serving(torch, np, tt, pm,
                            (paged_decode, flash_attention_fwd), card,
                            sync_rerun=True)
-    phase("6/18 serving numerics")
+    phase("6/19 serving numerics")
     phase_numerics(torch, np, tt, pm, kernels=(paged_decode,
                                                 flash_attention_fwd))
     phase_graph_numerics(torch, np, tt, pm)
-    phase("7/18 end-to-end training")
+    phase("7/19 end-to-end training")
     trained = phase_training(torch, bench, bench.KERNELS, card)
-    phase("8/18 training numerics")
+    phase("8/19 training numerics")
     phase_train_numerics(torch, np, tt, bench)
-    phase("9/18 K5/K6/K7 short attention vs plain")
+    phase("9/19 K5/K6/K7 short attention vs plain")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     k567 = phase_short(torch, sa, fa, flush, card)
     del flush
-    phase("10/18 end-to-end ViT-base")
+    phase("10/19 end-to-end ViT-base")
     vit = phase_vit(torch, eb, eb.KERNELS, card)
-    phase("11/18 end-to-end RoBERTa-base MLM")
+    phase("11/19 end-to-end RoBERTa-base MLM")
     mlm = phase_mlm(torch, eb, eb.KERNELS, card)
-    phase("12/18 encoder numerics")
+    phase("12/19 encoder numerics")
     phase_encoder_numerics(torch, np, eb, eb.KERNELS)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    phase("13/18 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
+    phase("13/19 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
     qmm, k10_path = phase_quant_matmul(torch, qm, qb, flush, card)
-    phase("14/18 K4 int8/int4 pools vs plain")
+    phase("14/19 K4 int8/int4 pools vs plain")
     k4q = phase_quant_decode(torch, pdm, pa, flush, card)
     del flush
-    phase("15/18 end-to-end quantized serving")
+    phase("15/19 end-to-end quantized serving")
     q8 = phase_serving(
         torch, np, tt, pm, (flash_attention_fwd, pdm.paged_decode_int8,
                             qm.int8_matmul), card,
@@ -2306,7 +2485,7 @@ def main():
         if bf_ms and ms:
             phase(f"graph tick device ms per step {label} {ms:.4f} vs bf16 "
                   f"{bf_ms:.4f} (ratio {ms / bf_ms:.4f}) [{card}]")
-    phase("16/18 quantized numerics")
+    phase("16/19 quantized numerics")
     n8 = phase_numerics(torch, np, tt, pm, "fp32 int8 weights + int8 pool",
                         quant=dict(bits=8), pool_dtype=torch.int8,
                         kernels=(qm.int8_matmul, pdm.paged_decode_int8))
@@ -2327,12 +2506,19 @@ def main():
                    quant=dict(bits=8, act_bits=8), tol=0.1,
                    kernels=(qm.int8_matmul, paged_decode))
     phase_w8a8_linears(torch, np, tt, qm, pm)
-    phase("17/18 end-to-end static-cache generation")
+    phase("17/19 end-to-end static-cache generation")
     gen = phase_generation(torch, np, tt, fa, qm, card)
-    phase("18/18 generation numerics")
+    phase("18/19 generation numerics")
     phase_generation_numerics(torch, np, tt, fa, attn)
     gen_k1 = sum(r["launches"]["flash_attention_fwd"] for r in gen.values()
                  ) + gen["bf16"]["generate_launches"]["flash_attention_fwd"]
+    phase("19/19 LFM2-8B-A1B: K11 vs plain, and end-to-end serving")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    k11 = phase_k11(torch, gm, moe, flush, card)
+    del flush
+    lfm2 = phase_lfm2_serving(torch, np, tt, (paged_decode,
+                                              flash_attention_fwd,
+                                              gm.grouped_swiglu), card)
 
     record = {"kernels": [
         {"name": "paged_decode[split+combine]", "route": "cuda",
@@ -2404,6 +2590,12 @@ def main():
          "source": "vyomai_tpu_torch/csrc/paged_decode.cu",
          "replaces": "vyomai_tpu/ops/paged_decode_pallas.py:40",
          "launches": q4["launches"]["paged_decode_int4"], **k4q["int4"]},
+        {"name": "grouped_swiglu", "route": "triton",
+         "kernels": ["k11_gate_up_kernel", "k11_down_kernel"],
+         "source": "vyomai_tpu_torch/ops/grouped_matmul.py",
+         "replaces": "vyomai_tpu/layers/moe.py:60",
+         "launches": lfm2["launches"]["grouped_swiglu"], **k11["decode"],
+         "prefill": k11["prefill"]},
     ]}
     # the decode tick per step, eager against graph, and phase 5's
     # throughput pipelined against synchronous
@@ -2430,6 +2622,10 @@ def main():
     record["generation"]["bf16"]["generate_tok_s"] = gen["bf16"][
         "generate_tok_s"]
     record["generation"]["card"] = card
+    # LFM2-8B-A1B through the engine (phase 19)
+    record["serving_lfm2"] = {k: v for k, v in lfm2.items()
+                              if k != "launches"}
+    record["serving_lfm2"]["card"] = card
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

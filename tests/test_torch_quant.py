@@ -411,13 +411,23 @@ def test_quantized_embedding_and_tied_head_match_jax(jx):
 
 
 def test_moe_expert_banks_raise():
+    """Stacked expert banks (JAX's ``w_in``/``w_out`` here) no longer raise:
+    they stay in their dtype while the linears beside them are quantized
+    (int8 banks are not ported). W8A8 with int4 weights still raises."""
     class Moe(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            self.w_in = torch.nn.Parameter(torch.zeros(2, 4, 8))
-            self.w_out = torch.nn.Parameter(torch.zeros(2, 8, 4))
-    with pytest.raises(NotImplementedError, match="layers/moe.py"):
-        tq.quantize_model(torch.nn.Sequential(Moe()))
+            self.router = torch.nn.Linear(8, 2, bias=False)
+            self.proj = torch.nn.Linear(8, 8, bias=False)
+            self.w_in = torch.nn.Parameter(torch.ones(2, 4, 8))
+            self.w_out = torch.nn.Parameter(torch.ones(2, 8, 4))
+    model = tq.quantize_model(torch.nn.Sequential(Moe()))
+    moe = model[0]
+    assert isinstance(moe.proj, tq.Int8Linear)
+    assert isinstance(moe.router, torch.nn.Linear)     # excluded by name
+    for bank in (moe.w_in, moe.w_out):
+        assert isinstance(bank, torch.nn.Parameter)
+        assert bank.dtype == torch.float32 and bool((bank == 1).all())
     with pytest.raises(ValueError, match="W8A8"):
         tq.quantize_model(torch.nn.Linear(4, 4), bits=4, act_bits=8)
 

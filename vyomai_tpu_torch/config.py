@@ -5,7 +5,9 @@ fields and defaults as
 their counterparts in ``vyomai_tpu.config`` (``QwenConfig``: Qwen3-0.6B's
 published ``config.json``), so one config value describes the model in
 both packages. Qwen features the port does not run yet raise
-``NotImplementedError`` at construction.
+``NotImplementedError`` at construction. ``Lfm2MoeConfig`` is the port's
+own (the JAX package has no such model): LFM2-8B-A1B's published
+``config.json`` under its own key names.
 """
 
 from dataclasses import dataclass, replace
@@ -114,3 +116,69 @@ class QwenConfig:
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError("num_attention_heads must be a multiple of "
                              "num_key_value_heads")
+
+
+LFM2_8B_A1B_LAYER_TYPES = tuple(
+    "full_attention" if i in (2, 6, 10, 14, 18, 21) else "conv"
+    for i in range(24))
+
+
+@dataclass(frozen=True)
+class Lfm2MoeConfig:
+    """LFM2-MoE causal-LM config under the published ``config.json`` keys
+    (defaults: LFM2-8B-A1B's): gated short-convolution layers
+    (``conv_L_cache`` taps) and GQA layers with per-head QK-norm, as
+    ``layer_types`` orders them; a dense SwiGLU of ``intermediate_size`` in
+    the first ``num_dense_layers`` layers, then ``num_experts`` SwiGLU
+    experts of ``moe_intermediate_size``, ``num_experts_per_tok`` chosen
+    by a sigmoid router (with ``expert_bias`` in the choice only when
+    ``use_expert_bias``). The head is tied to the token table (upstream's
+    default; ``config.json`` has no key for it).
+
+    ``head_dim``, ``rms_norm_eps``, ``qk_norm`` and ``rope_scaling`` are
+    the names the shared attention code (``layers.modern``) reads."""
+
+    vocab_size: int = 65536
+    hidden_size: int = 2048
+    intermediate_size: int = 7168
+    moe_intermediate_size: int = 1792
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    max_position_embeddings: int = 128000
+    norm_eps: float = 1e-5
+    rope_theta: float = 1000000.0
+    conv_L_cache: int = 3
+    conv_bias: bool = False
+    layer_types: Tuple[str, ...] = LFM2_8B_A1B_LAYER_TYPES
+    num_dense_layers: int = 2
+    num_experts: int = 32
+    num_experts_per_tok: int = 4
+    use_expert_bias: bool = True
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    pad_token_id: int = 0
+    eos_token_id: Union[int, Tuple[int, ...]] = 7
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if len(self.layer_types) != self.num_hidden_layers or not set(
+                self.layer_types) <= {"conv", "full_attention"}:
+            raise ValueError("layer_types: one of 'conv' or "
+                             "'full_attention' per layer")
+        if self.conv_bias:
+            raise NotImplementedError("conv_bias=True is not ported yet")
+        if self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError("num_attention_heads must be a multiple of "
+                             "num_key_value_heads")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def rms_norm_eps(self) -> float:
+        return self.norm_eps
+
+    qk_norm = True
+    rope_scaling = None

@@ -25,8 +25,10 @@ K9 reads). ``core.nn.apply_linear`` /
 serving path and ``ModelForCausalLM``'s dense forward (the generation
 loops) run a quantized model with no special case at their call sites.
 
-MoE expert banks (the JAX ``_quantize_moe``) wait for ``layers/moe.py``:
-:func:`quantize_model` raises on a module that holds them.
+Stacked MoE expert banks (``layers.moe.MoE``'s ``w1``/``w3``/``w2``, plain
+parameters) stay in their dtype, and the experts run through K11 as
+before; the router is an ``nn.Linear`` and is quantized like any other.
+Int8 expert banks (the JAX ``_quantize_moe``) are not ported.
 """
 
 from typing import Dict, Optional
@@ -142,9 +144,10 @@ def quantize_model(model: nn.Module, *, bits: int = 8,
                    group_size: int = 128, act_bits: int = 0,
                    embed: bool = True, exclude=_EXCLUDE_DEFAULT) -> nn.Module:
     """Quantize ``model``'s linears (and, with ``embed``, its token table)
-    IN PLACE, by the JAX ``quantize_params`` rules (module docstring).
-    Returns ``model``. ``ModelForCausalLM`` (dense and through
-    ``serving.paged_model``) runs the result; the other models' layers read
+    IN PLACE, by the JAX ``quantize_params`` rules (module docstring); MoE
+    expert banks keep their dtype. Returns ``model``.
+    ``ModelForCausalLM`` (dense and through ``serving.paged_model``) and
+    ``Lfm2MoeForCausalLM`` run the result; the other models' layers read
     float weights directly."""
     if bits not in (8, 4):
         raise ValueError(f"bits={bits}: 8 or 4")
@@ -152,11 +155,6 @@ def quantize_model(model: nn.Module, *, bits: int = 8,
         raise ValueError(f"act_bits={act_bits}: 0 or 8")
     if act_bits == 8 and bits == 4:
         raise ValueError("W8A8 needs unpacked int8 kernels (bits=8)")
-    for name, mod in model.named_modules():
-        if hasattr(mod, "w_in") and hasattr(mod, "w_out"):
-            raise NotImplementedError(
-                f"{name}: MoE expert banks are not ported yet (they wait "
-                "for layers/moe.py)")
     for parent_name, parent in list(model.named_modules()):
         for name, child in list(parent.named_children()):
             if isinstance(child, nn.Linear) and name not in exclude:

@@ -36,8 +36,18 @@ around ``engine.tick.launch``, ``engine.tick.harvest``, and
 ``engine.tick.wait`` around each wait on a tick's event). The times and
 counts behind the per-layer metrics are in ``counters`` always, on
 ``time.perf_counter_ns``'s clock.
+
+Each admitted sequence holds one decode lane, from admission until it
+finishes, is aborted or is preempted: its row in every tick and, for a
+model with conv layers (``models.lfm2``), its row of the conv state
+(``paged_model.LaneState``), which its own prefill writes, in stream
+order, before the first tick that reads it. A preempted sequence is
+prefilled again from its first token. Such a model cannot take
+``radix_cache=True``: a cached prefix would need the conv state at its
+end, which the radix cache does not keep.
 """
 
+import heapq
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
@@ -113,10 +123,11 @@ class ContinuousBatchEngine:
                  radix_cache: bool = True,
                  max_prefill_per_tick: Optional[int] = 4,
                  pipeline_decode: bool = True, device=None, **unsupported):
-        """``model``: a ``models.qwen.ModelForCausalLM`` on ``device``
-        (default: the model's device), float or quantized
-        (``quant.quantize_model``). ``dtype`` is the pool's storage dtype:
-        a float dtype, ``torch.int8`` or ``"int4"`` (quantized pools,
+        """``model``: a ``models.qwen.ModelForCausalLM`` or
+        ``models.lfm2.Lfm2MoeForCausalLM`` on ``device`` (default: the
+        model's device), float or quantized (``quant.quantize_model``).
+        ``dtype`` is the pool's storage dtype: a float dtype,
+        ``torch.int8`` or ``"int4"`` (quantized pools,
         ``paged_model.init_pool``). ``radix_cache=False`` disables prefix
         caching.
         ``max_prefill_per_tick`` caps prefill calls per tick while
@@ -164,6 +175,20 @@ class ContinuousBatchEngine:
         self._inflight = None
         self.pool = paged_model.init_pool(self.cfg, num_blocks, block_size,
                                           dtype=dtype, device=self.device)
+        self.lane_state = paged_model.init_lane_state(model, max_batch)
+        if self.radix_cache and self.lane_state is not None and \
+                self.lane_state.conv is not None:
+            raise NotImplementedError(
+                "radix_cache=True with a model whose conv layers keep "
+                "per-lane state: reusing a cached prefix needs the conv "
+                "state at the prefix's end, which the radix cache does not "
+                "keep; pass radix_cache=False")
+        self._free_lanes = list(range(max_batch))     # a heap
+        # the prefill's MoE counters, read back with its tokens
+        self._moe_read = None
+        if self.lane_state is not None and self.lane_state.moe is not None:
+            self._moe_read = torch.zeros(
+                2, dtype=torch.int64, pin_memory=self.device.type == "cuda")
         self.waiting: deque = deque()
         self.active: Dict[int, SequenceState] = {}
         self.needs_prefill: deque = deque()
@@ -181,6 +206,8 @@ class ContinuousBatchEngine:
             "prefill_tokens": 0, "prefill_slots": 0,
             "prefill_attn_pairs": 0, "prefill_ctx_tokens": 0,
             "tick_host_ns": 0,
+            "moe_rows_decode": 0, "moe_rows_prefill": 0,
+            "moe_expert_visits_decode": 0, "moe_expert_visits_prefill": 0,
         }
         """Running integer counts, read as differences between two copies
         (``dict(engine.counters)``); times are ``time.perf_counter_ns``
@@ -221,6 +248,17 @@ class ContinuousBatchEngine:
           dispatched from the tick in flight (``chained_tick_share``);
           ``tick_host_ns``: the host's time in ticks outside the waits on a
           tick's event (``tick_host_ms.tok_s``).
+        - ``moe_rows_decode``, ``moe_rows_prefill``: rows (token, chosen
+          expert) that K11 ran in decode steps and in prefill calls, every
+          MoE layer; ``moe_expert_visits_decode``,
+          ``moe_expert_visits_prefill``: (layer, step or call, expert)
+          triples with at least one row (``k11_roofline.decode.tok_s``,
+          ``k11_roofline.prefill.tok_s``, ``expert_rows_per_visit.tok_s``).
+          Summed on the device inside the captured graphs
+          (``paged_model.LaneState.moe``) and copied back beside a tick's
+          tokens and a prefill call's, so they stand as of the last tick
+          harvested and the last prefill read; 0 for a model without
+          experts.
         """
         # submit -> first token, without keeping one number per request
         self._first_token_ns = 0
@@ -253,6 +291,7 @@ class ContinuousBatchEngine:
         self._next_id += 1
         state = SequenceState(sid, prompt)
         state.no_radix = not self.radix_cache
+        state.lane = None
         state.max_new = (self.max_new_tokens if max_new_tokens is None
                          else max_new_tokens)
         state.t_submit = state.t_queued = clock()
@@ -285,12 +324,14 @@ class ContinuousBatchEngine:
                 if state.seq_id == seq_id:
                     q.remove(state)
                     self.kv.release_sequence(state)
+                    self._release_lane(state)
                     return True
         state = self.active.pop(seq_id, None)
         if state is None:
             return False
         state.finished = True
         self.kv.free(state, cache_prefix=not state.no_radix)
+        self._release_lane(state)
         return True
 
     def metrics(self) -> Dict[str, float]:
@@ -350,6 +391,7 @@ class ContinuousBatchEngine:
                         f"blocks, pool has {self.kv.num_blocks}")
                 break
             self.waiting.popleft()
+            state.lane = heapq.heappop(self._free_lanes)
             state.t_admitted = clock()
             c = self.counters
             c["cached_prompt_tokens"] += state.num_cached_tokens
@@ -365,6 +407,7 @@ class ContinuousBatchEngine:
         self.counters["preemptions"] += 1
         self.kv.free(victim, cache_prefix=False)
         self.active.pop(victim.seq_id, None)
+        self._release_lane(victim)
         victim.prefill_len = len(victim.tokens)
         victim.num_cached_tokens = 0
         victim.t_queued = clock()
@@ -388,8 +431,15 @@ class ContinuousBatchEngine:
             logits = graph.run()
             t_dispatched = clock()
             with span("engine.prefill.read"):
+                moe = self._moe_read is not None
+                if moe:   # complete once the tokens' read-back returns
+                    self._moe_read.copy_(self.lane_state.moe[1],
+                                         non_blocking=graph.graph is not None)
                 # the next replay overwrites the logits: read them first
                 next_tokens = self._pick_tokens(logits)
+                if moe:
+                    (c["moe_rows_prefill"],
+                     c["moe_expert_visits_prefill"]) = self._moe_read.tolist()
                 for i, state in enumerate(states):
                     done = state.num_cached_tokens + len(suffixes[i])
                     if done >= state.prefill_len:
@@ -413,7 +463,8 @@ class ContinuousBatchEngine:
             self._prefill_graphs = {
                 b: paged_model.PrefillGraph(
                     self.model, self.pool, self.prefill_group, b,
-                    self.max_blocks_per_seq, mempool=mempool)
+                    self.max_blocks_per_seq, mempool=mempool,
+                    state=self.lane_state)
                 for b in self.prefill_buckets}
         return self._prefill_graphs
 
@@ -433,7 +484,7 @@ class ContinuousBatchEngine:
                         self.prefill_buckets)
         graph = self.prefill_graphs()[t_pad]
         x = {name: t.numpy() for name, t in graph.stage.items()}
-        for name, (fill, _) in graph.DEAD.items():
+        for name, (fill, _) in graph.dead.items():
             x[name].fill(fill)
         pairs = ctx = 0
         for i, (state, suffix) in enumerate(zip(states, suffixes)):
@@ -447,6 +498,8 @@ class ContinuousBatchEngine:
             x["tables"][i, :len(state.block_table)] = state.block_table
             x["ctx_len"][i] = state.prefill_len
             x["true_len"][i] = t
+            if "lanes" in x:
+                x["lanes"][i] = state.lane
             pairs += t * cached + t * (t + 1) // 2   # keys: position + 1
             ctx += cached + t
         c = self.counters
@@ -483,9 +536,15 @@ class ContinuousBatchEngine:
         if hit_eos or new >= state.max_new or out_of_blocks:
             state.finished = True
             self.kv.free(state, cache_prefix=not state.no_radix)
+            self._release_lane(state)
             self.active.pop(state.seq_id, None)
             self.counters["requests_completed"] += 1
             self.finished[state.seq_id] = state
+
+    def _release_lane(self, state: SequenceState):
+        if state.lane is not None:
+            heapq.heappush(self._free_lanes, state.lane)
+            state.lane = None
 
     # -- decode ticks ---------------------------------------------------------
     def _decode_batch(self):
@@ -527,7 +586,8 @@ class ContinuousBatchEngine:
         budget = np.zeros(b, dtype=np.int32)
         tables = np.full((b, self.max_blocks_per_seq), -1, dtype=np.int32)
         live = []
-        for i, state in enumerate(states[:b]):
+        for state in states:
+            i = state.lane
             pos = len(state.tokens) - 1  # position of the latest token
             # budget the whole horizon up front so slot arithmetic never
             # walks off the block table; cap by table capacity
@@ -618,7 +678,8 @@ class ContinuousBatchEngine:
                 self.model, self.pool, b, self.max_blocks_per_seq,
                 self.decode_horizon, do_sample=self.do_sample,
                 eos=-1 if self.eos_token_id is None else self.eos_token_id,
-                generator=self.generator, samp=self._sampling)
+                generator=self.generator, samp=self._sampling,
+                state=self.lane_state)
 
             def host(*shape, dtype):
                 return torch.zeros(shape, dtype=dtype, pin_memory=cuda)
@@ -631,6 +692,9 @@ class ContinuousBatchEngine:
                 "out": host(b, self.decode_horizon, dtype=torch.int32),
                 "event": torch.cuda.Event() if cuda else None}
                 for _ in range(2)]
+            if self._moe_read is not None:
+                for stage in self._stages:   # the decode MoE counters
+                    stage["moe"] = host(2, dtype=torch.int64)
         return self._graph
 
     def _launch_tick(self, positions, tables, live_mask, budget, tokens=None):
@@ -656,6 +720,8 @@ class ContinuousBatchEngine:
                     non_blocking=cuda)
         gen, _, _ = graph.run(int(min(self.decode_horizon, budget.max())))
         stage["out"].copy_(gen, non_blocking=cuda)
+        if "moe" in stage:
+            stage["moe"].copy_(self.lane_state.moe[0], non_blocking=cuda)
         if cuda:
             stage["event"].record()
         return {"stage": stage}
@@ -674,6 +740,10 @@ class ContinuousBatchEngine:
             self._wait(stage["event"])   # this tick's tokens, and no later
         with span("engine.tick.harvest"):
             gen = stage["out"].numpy().copy()
+            if "moe" in stage:
+                c = self.counters
+                (c["moe_rows_decode"],
+                 c["moe_expert_visits_decode"]) = stage["moe"].tolist()
             for i, state, h in rec["live"]:
                 if state.finished:
                     # finished at an earlier harvest (or aborted) while

@@ -23,6 +23,15 @@ its own quantization as JAX's does.
 
 Linears, the token table and the tied head go through ``core.nn``'s module
 dispatch, so a model from ``quant.quantize_model`` runs unchanged.
+
+The steps walk the model's layers by kind. A model with ``layer_types``
+(``models.lfm2.Lfm2MoeForCausalLM``) keeps KV for its ``full_attention``
+layers only: the pool's L counts those (:func:`kv_layers`), and a layer's
+pool index is its place among them. Its conv layers keep a per-lane state
+and its expert layers device counters in a :class:`LaneState` beside the
+pool (None for the dense model), which both steps and both captured graphs
+take; the MoE layers route only real tokens (a prefill row's suffix, a
+live decode lane).
 """
 
 from typing import Optional
@@ -35,7 +44,10 @@ from ..core.masks import NEG_INF
 from ..generation.sampling import _min_p_mask, _top_p_mask
 from ..layers.modern import (lm_logits, mlp_residual, qkv_heads, rope_tables,
                              rotate)
+from ..layers.moe import MoE, moe_apply
+from ..layers.short_conv import conv_sequence, conv_step
 from ..ops.flash_attention import flash_attention_fwd
+from ..ops.grouped_matmul import grouped_swiglu
 from ..ops.paged_attention import gather_kv, write_kv
 from ..ops.paged_decode import (paged_decode, paged_decode_int4,
                                 paged_decode_int8)
@@ -43,10 +55,59 @@ from ..ops.quant_matmul import int4_matmul, int8_matmul
 from .spans import span
 
 
+def kv_layers(config) -> list:
+    """The layers that hold KV in the pool, in pool order: every layer, or
+    those ``config.layer_types`` names ``full_attention``."""
+    types = getattr(config, "layer_types", None)
+    if types is None:
+        return list(range(config.num_hidden_layers))
+    return [i for i, t in enumerate(types) if t == "full_attention"]
+
+
+class LaneState:
+    """What a model with conv layers or experts keeps beside the paged
+    pool, for ``lanes`` decode lanes (:func:`init_lane_state`):
+
+    - ``conv [conv layers, lanes + 1, L - 1, H]`` in the activation dtype:
+      each lane's last ``L - 1`` gated conv inputs in every conv layer
+      (``conv_index`` maps a layer to its row). A prefill row writes its
+      lane as of its last real token, from zeros at a sequence's start or
+      from the lane's state when it continues a chunked suffix; a dead
+      row writes the last lane, a sink. A decode step shifts each live
+      lane by one token and leaves a dead one as it was.
+    - ``moe [2, 2]`` int64: for decode steps (row 0) and prefill calls (row
+      1), the rows K11 ran and the (layer, call, expert) triples with at
+      least one row, summed on the device inside the captured graphs.
+    """
+
+    def __init__(self, model, lanes: int):
+        cfg, device = model.config, model.device
+        convs = [i for i, layer in enumerate(model.layers)
+                 if getattr(layer, "conv", None) is not None]
+        self.conv_index = {li: j for j, li in enumerate(convs)}
+        self.conv = None
+        if convs:
+            taps = model.layers[convs[0]].conv.taps
+            self.conv = torch.zeros(len(convs), lanes + 1, taps - 1,
+                                    cfg.hidden_size, dtype=model.dtype,
+                                    device=device)
+        self.moe = None
+        if any(isinstance(layer.mlp, MoE) for layer in model.layers):
+            self.moe = torch.zeros(2, 2, dtype=torch.int64, device=device)
+
+
+def init_lane_state(model, lanes: int) -> Optional[LaneState]:
+    """The model's :class:`LaneState` for ``lanes`` lanes; None for a model
+    with neither conv layers nor experts."""
+    state = LaneState(model, lanes)
+    return None if state.conv is None and state.moe is None else state
+
+
 def init_pool(config, num_blocks: int, block_size: int,
               dtype=torch.bfloat16, device=None):
     """Combined K/V pool ``[L, NB, 2, BS, H_kv*D]`` (k row 0, v row 1), on
-    the card unless ``device`` names another.
+    the card unless ``device`` names another; L counts the layers that
+    hold KV (:func:`kv_layers`).
 
     ``dtype=torch.int8`` stores rows quantized at write time with one fp32
     scale per (layer, block, k/v, slot); ``dtype="int4"`` packs two values
@@ -54,7 +115,7 @@ def init_pool(config, num_blocks: int, block_size: int,
     module docstring, the scales initialised to 1 as in JAX."""
     device = resolve_device(device)
     h_kv = config.num_key_value_heads
-    shape = (config.num_hidden_layers, num_blocks, 2, block_size,
+    shape = (len(kv_layers(config)), num_blocks, 2, block_size,
              h_kv * config.head_dim)
     if dtype == "int4":
         return {"kv": torch.zeros(shape[:4] + (shape[4] // 2,),
@@ -95,14 +156,55 @@ def _layer_tables(tables: torch.Tensor, layer: int, nb: int) -> torch.Tensor:
     return torch.where(tables >= 0, tables + layer * nb, tables)
 
 
+def _ffn_residual(layer, cfg, h: torch.Tensor, valid, counts
+                  ) -> torch.Tensor:
+    """``h + ffn(post_attention_layernorm(h))``: the dense MLP, or the
+    experts over the ``valid`` tokens (``counts``: their device counters or
+    None)."""
+    if not isinstance(layer.mlp, MoE):
+        return mlp_residual(layer, cfg, h)
+    with span("paged_model.moe"):
+        normed = cnn.rms_norm(layer.post_attention_layernorm.weight, h,
+                              eps=cfg.rms_norm_eps)
+        return h + moe_apply(layer.mlp, normed, valid, counts)
+
+
+def _moe_counts(state, phase: int):
+    return None if state is None or state.moe is None else state.moe[phase]
+
+
+def _conv_prefill(conv, normed, st, lanes, cont, true_len) -> torch.Tensor:
+    """The conv over each row's chunk from its lane's state (``cont``) or
+    zeros; writes each lane's state as of the row's last real token."""
+    with span("paged_model.conv"):
+        lane = torch.where(lanes >= 0, lanes, st.shape[0] - 1)
+        init = torch.where(cont[:, None, None], st[lane], 0)
+        out, new = conv_sequence(conv, normed, init, true_len)
+        st.index_copy_(0, lane, new.to(st.dtype))
+        return out
+
+
+def _conv_decode(conv, normed, st, alive) -> torch.Tensor:
+    """One token of the conv per lane; live lanes' states shift."""
+    with span("paged_model.conv"):
+        cur = st[:normed.shape[0]]
+        out, new = conv_step(conv, normed, cur)
+        cur.copy_(torch.where(alive[:, None, None], new.to(cur.dtype), cur))
+        return out
+
+
 def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
-                block_tables, ctx_len) -> torch.Tensor:
+                block_tables, ctx_len, true_len=None, lanes=None,
+                state=None) -> torch.Tensor:
     """Multi-token paged step: writes each token's K/V at its slot and
     attends causally-with-offset over the gathered paged context.
 
     ids/positions/slot_blocks/slot_offsets: [N, T] (slot -1 = padding or
     dead lane, write dropped); block_tables: [N, MAXB]; ctx_len: [N] total
-    valid context (0 = dead lane). Returns final-normed hidden [N, T, Dm].
+    valid context (0 = dead lane). A model with a :class:`LaneState`
+    (``state``) also takes ``true_len`` [N] (real tokens of each row) and
+    ``lanes`` [N] (each row's lane, -1 dead). Returns final-normed hidden
+    [N, T, Dm].
     """
     cfg = model.config
     n, t_pad = ids.shape
@@ -111,6 +213,12 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
     nkv = cfg.num_key_value_heads
     maxb = block_tables.shape[1]
     hidden = cnn.apply_embedding(model.embed_tokens, ids)       # [N, T, Dm]
+    kv_of = {li: j for j, li in enumerate(kv_layers(cfg))}
+    valid = cont = None                 # the dense model reads neither
+    if state is not None:
+        valid = slot_blocks >= 0                # real tokens
+        cont = positions[:, 0] > 0              # a chunk after the first
+    counts = _moe_counts(state, 1)
 
     # causal-with-offset additive mask over the gathered context
     k_pos = torch.arange(maxb * bs, device=ids.device)[None, None, :]
@@ -124,40 +232,52 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
         with span("paged_model.prefill.layer"):
             normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
                                   eps=cfg.rms_norm_eps)
-            q, k, v = qkv_heads(layer.self_attn, cfg, normed, (n, t_pad))
-            q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-            write_kv(flat_pool, k.reshape(n * t_pad, nkv, -1),
-                     v.reshape(n * t_pad, nkv, -1),
-                     _layer_tables(flat_blocks, layer_i, nb), flat_offsets,
-                     scales=flat_sc)
-            tables = _layer_tables(block_tables, layer_i, nb).clamp_min(0)
-            # [N, H_kv, MAXB*BS, D]; a quantized pool's come back dequantized
-            # in fp32, and K1 attends q against them in (at least) fp32, as the
-            # JAX prefill does: a bf16 q widens exactly, and the output returns
-            # to q's dtype
-            kk, vv = gather_kv(flat_pool, tables, nkv, flat_sc)
-            qh = q.transpose(1, 2).contiguous()          # [N, H, T, D]
-            acc = qh.dtype if flat_sc is None else torch.promote_types(
-                qh.dtype, torch.float32)
-            attn, _ = flash_attention_fwd(qh.to(acc), kk.to(acc).contiguous(),
-                                          vv.to(acc).contiguous(), bias)
-            attn = attn.to(qh.dtype).transpose(1, 2).reshape(n, t_pad, -1)
-            hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj, attn)
-            hidden = mlp_residual(layer, cfg, hidden)
+            if layer_i not in kv_of:
+                st = state.conv[state.conv_index[layer_i]]
+                hidden = hidden + _conv_prefill(layer.conv, normed, st,
+                                                lanes, cont, true_len)
+            else:
+                pl = kv_of[layer_i]
+                q, k, v = qkv_heads(layer.self_attn, cfg, normed, (n, t_pad))
+                q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+                write_kv(flat_pool, k.reshape(n * t_pad, nkv, -1),
+                         v.reshape(n * t_pad, nkv, -1),
+                         _layer_tables(flat_blocks, pl, nb), flat_offsets,
+                         scales=flat_sc)
+                tables = _layer_tables(block_tables, pl, nb).clamp_min(0)
+                # [N, H_kv, MAXB*BS, D]; a quantized pool's come back
+                # dequantized in fp32, and K1 attends q against them in (at
+                # least) fp32, as the JAX prefill does: a bf16 q widens
+                # exactly, and the output returns to q's dtype
+                kk, vv = gather_kv(flat_pool, tables, nkv, flat_sc)
+                qh = q.transpose(1, 2).contiguous()          # [N, H, T, D]
+                acc = qh.dtype if flat_sc is None else torch.promote_types(
+                    qh.dtype, torch.float32)
+                attn, _ = flash_attention_fwd(
+                    qh.to(acc), kk.to(acc).contiguous(),
+                    vv.to(acc).contiguous(), bias)
+                attn = attn.to(qh.dtype).transpose(1, 2).reshape(
+                    n, t_pad, -1)
+                hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj,
+                                                   attn)
+            hidden = _ffn_residual(layer, cfg, hidden, valid, counts)
     return cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
 
 
 @torch.no_grad()
 def prefill(model, pool, ids, positions, slot_blocks, slot_offsets,
-            block_tables, ctx_len, true_len) -> torch.Tensor:
-    """Batched prefill of uncached prompt suffixes; writes ``pool`` in
-    place. ids/positions/slot_blocks/slot_offsets: [N, T_pad];
-    block_tables: [N, MAXB]; ctx_len/true_len: [N] (0 = dead lane).
+            block_tables, ctx_len, true_len, lanes=None,
+            state=None) -> torch.Tensor:
+    """Batched prefill of uncached prompt suffixes; writes ``pool`` (and
+    ``state``'s conv lanes) in place. ids/positions/slot_blocks/
+    slot_offsets: [N, T_pad]; block_tables: [N, MAXB]; ctx_len/true_len:
+    [N] (0 = dead lane); lanes: [N] (-1 = dead), read with ``state``.
     Returns last-real-token logits [N, V]. A ``paged_model.prefill`` span
     (``spans.span``), with one ``paged_model.prefill.layer`` a layer."""
     with span("paged_model.prefill"):
         hidden = _multi_core(model, pool, ids, positions, slot_blocks,
-                             slot_offsets, block_tables, ctx_len)
+                             slot_offsets, block_tables, ctx_len, true_len,
+                             lanes, state)
         last = (true_len.long() - 1).clamp_min(0)
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         return lm_logits(model, hidden[rows, last])
@@ -165,32 +285,41 @@ def prefill(model, pool, ids, positions, slot_blocks, slot_offsets,
 
 @torch.no_grad()
 def decode(model, pool, tokens, positions, block_tables, seq_lens,
-           slot_blocks, slot_offsets) -> torch.Tensor:
-    """Batched single-token decode; writes ``pool`` in place.
+           slot_blocks, slot_offsets, state=None) -> torch.Tensor:
+    """Batched single-token decode; writes ``pool`` (and ``state``'s conv
+    lanes) in place.
 
     tokens: [B]; positions: [B] absolute positions; block_tables: [B, MAXB]
-    int32; seq_lens: [B] int32 context lengths incl. the new token;
-    slot_blocks/slot_offsets: [B] write targets (-1 = dead lane).
+    int32; seq_lens: [B] int32 context lengths incl. the new token (0 = dead
+    lane); slot_blocks/slot_offsets: [B] write targets (-1 = dead lane).
     Returns logits [B, V]."""
     cfg = model.config
     b = tokens.shape[0]
     flat_pool, flat_sc, nb = _flat(pool)
     nkv = cfg.num_key_value_heads
+    kv_of = {li: j for j, li in enumerate(kv_layers(cfg))}
+    alive = None if state is None else seq_lens > 0
+    counts = _moe_counts(state, 0)
     hidden = cnn.apply_embedding(model.embed_tokens, tokens)     # [B, Dm]
     cos, sin = rope_tables(model, positions, hidden.dtype)       # [B,1,D]
     for layer_i, layer in enumerate(model.layers):
         normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
                               eps=cfg.rms_norm_eps)
-        q, k, v = qkv_heads(layer.self_attn, cfg, normed, (b,))
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        write_kv(flat_pool, k, v, _layer_tables(slot_blocks, layer_i, nb),
-                 slot_offsets, scales=flat_sc)
-        attn = paged_decode(q.contiguous(), flat_pool,
-                            _layer_tables(block_tables, layer_i, nb),
-                            seq_lens, nkv, scales=flat_sc)       # [B, H, D]
-        hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj,
-                                           attn.reshape(b, -1))
-        hidden = mlp_residual(layer, cfg, hidden)
+        if layer_i not in kv_of:
+            st = state.conv[state.conv_index[layer_i]]
+            hidden = hidden + _conv_decode(layer.conv, normed, st, alive)
+        else:
+            pl = kv_of[layer_i]
+            q, k, v = qkv_heads(layer.self_attn, cfg, normed, (b,))
+            q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+            write_kv(flat_pool, k, v, _layer_tables(slot_blocks, pl, nb),
+                     slot_offsets, scales=flat_sc)
+            attn = paged_decode(q.contiguous(), flat_pool,
+                                _layer_tables(block_tables, pl, nb),
+                                seq_lens, nkv, scales=flat_sc)   # [B, H, D]
+            hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj,
+                                               attn.reshape(b, -1))
+        hidden = _ffn_residual(layer, cfg, hidden, alive, counts)
     hidden = cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
     return lm_logits(model, hidden)
 
@@ -268,7 +397,7 @@ class _Carry:
 
 
 def _step(model, pool, c: _Carry, do_sample: bool, eos: int, generator,
-          samp) -> torch.Tensor:
+          samp, state=None) -> torch.Tensor:
     """One step of the horizon on ``c``, in place, with nothing read back
     to the host: a CUDA graph captures it as it is. A dead lane is a no-op:
     its write slot is -1 (dropped), its context length 0 (K4 gives 0), its
@@ -280,7 +409,7 @@ def _step(model, pool, c: _Carry, do_sample: bool, eos: int, generator,
     slot_blocks = torch.where(c.alive, blk, -1)
     seq_lens = torch.where(c.alive, c.pos + 1, 0).to(torch.int32)
     logits = decode(model, pool, c.tokens, c.pos, c.tables, seq_lens,
-                    slot_blocks, c.pos % bs)
+                    slot_blocks, c.pos % bs, state)
     if do_sample:
         nxt = sample_tokens(logits, generator, *samp)
     else:
@@ -303,7 +432,8 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
                    horizon: int, do_sample: bool = False, eos: int = -1,
                    generator: Optional[torch.Generator] = None,
                    temperature=1.0, top_p=1.0, min_p=0.0, budget=None,
-                   dead_mask=None, return_logits: bool = False):
+                   dead_mask=None, return_logits: bool = False,
+                   state=None):
     """Up to ``horizon`` decode steps per lane, run eagerly. The engine
     pre-allocates blocks for ``positions + budget`` so ``table[pos // BS],
     pos % BS`` always lands on a live block.
@@ -320,7 +450,8 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
     ``(generated [B, horizon] int32, final_tokens [B] int32, eos_dead [B]
     bool)`` (dead entries are 0), and with ``return_logits`` the last
     step's logits; ``(final_tokens, eos_dead)`` is the carry a chained tick
-    starts from."""
+    starts from. ``state``: the model's :class:`LaneState` (lane ``i`` is
+    row ``i``), None for the dense model."""
     b, maxb = block_tables.shape
     c = _Carry(b, maxb, horizon, tokens.device)
     if budget is None:
@@ -330,7 +461,8 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
     samp = sampling_tensors(tokens.device, temperature, top_p, min_p)
     logits = None
     for _ in range(horizon):
-        logits = _step(model, pool, c, do_sample, eos, generator, samp)
+        logits = _step(model, pool, c, do_sample, eos, generator, samp,
+                       state)
     if return_logits:
         return c.out, c.tokens, c.eos_dead, logits
     return c.out, c.tokens, c.eos_dead
@@ -339,7 +471,7 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
 # the kernels' wrappers that a captured decode step or prefill may call,
 # and their counters
 _COUNTED = (paged_decode, paged_decode_int8, paged_decode_int4, int8_matmul,
-            int4_matmul, flash_attention_fwd)
+            int4_matmul, flash_attention_fwd, grouped_swiglu)
 
 
 def _launch_counts() -> dict:
@@ -402,13 +534,15 @@ class HorizonGraph:
     host work between steps. There is no eager fallback on the card. On the
     CPU there is no graph, and :meth:`run` calls the same step eagerly.
     ``logits`` holds the last step's logits (the graph's output buffer on
-    the card)."""
+    the card). ``state``, the model's :class:`LaneState` (None for the
+    dense model), is bound like the pool: lane ``i`` is its lane ``i``."""
 
     def __init__(self, model, pool, batch: int, max_blocks: int,
                  horizon: int, *, do_sample: bool = False, eos: int = -1,
-                 generator: Optional[torch.Generator] = None, samp=None):
+                 generator: Optional[torch.Generator] = None, samp=None,
+                 state=None):
         device = pool_parts(pool)[0].device
-        self.model, self.pool = model, pool
+        self.model, self.pool, self.state = model, pool, state
         self.do_sample, self.eos, self.generator = do_sample, eos, generator
         self.samp = samp if samp is not None else sampling_tensors(device)
         self.c = _Carry(batch, max_blocks, horizon, device)
@@ -422,7 +556,7 @@ class HorizonGraph:
     @torch.no_grad()
     def _step(self):
         self.logits = _step(self.model, self.pool, self.c, self.do_sample,
-                            self.eos, self.generator, self.samp)
+                            self.eos, self.generator, self.samp, self.state)
 
     def start(self, positions, tables, live, budget, tokens=None,
               non_blocking: bool = False):
@@ -460,7 +594,9 @@ class PrefillGraph:
     :meth:`run` replays them: the same kernels (K1, K8/K9 on a quantized
     model) and the same ``write_kv``/``gather_kv`` as the eager call. There
     is no eager fallback on the card. On the CPU there is no graph, and
-    :meth:`run` calls :func:`prefill` on the static inputs."""
+    :meth:`run` calls :func:`prefill` on the static inputs. With ``state``
+    (the model's :class:`LaneState`, bound like the pool) the inputs gain
+    ``lanes`` ``[group]``, each row's lane; :attr:`dead` lists them all."""
 
     # name -> (value of a dead row, dtype); rows: [group, bucket] for the
     # first four, [group, max_blocks] for the tables, [group] for the rest
@@ -470,14 +606,16 @@ class PrefillGraph:
             "true_len": (0, torch.int64)}
 
     def __init__(self, model, pool, group: int, bucket: int,
-                 max_blocks: int, *, mempool=None):
+                 max_blocks: int, *, mempool=None, state=None):
         device = pool_parts(pool)[0].device
         cuda = device.type == "cuda"
-        self.model, self.pool = model, pool
+        self.model, self.pool, self.state = model, pool, state
+        self.dead = self.DEAD if state is None else dict(
+            self.DEAD, lanes=(-1, torch.int64))
         shapes = {"tables": (group, max_blocks), "ctx_len": (group,),
-                  "true_len": (group,)}
+                  "true_len": (group,), "lanes": (group,)}
         self.stage, self.inputs = {}, {}
-        for name, (fill, dtype) in self.DEAD.items():
+        for name, (fill, dtype) in self.dead.items():
             shape = shapes.get(name, (group, bucket))
             self.stage[name] = torch.full(shape, fill, dtype=dtype,
                                           pin_memory=cuda)
@@ -491,7 +629,8 @@ class PrefillGraph:
                                                    pool=mempool)
 
     def _forward(self):
-        self.logits = prefill(self.model, self.pool, *self.inputs.values())
+        self.logits = prefill(self.model, self.pool, *self.inputs.values(),
+                              state=self.state)
 
     def start(self):
         """Copy ``stage`` up to the static inputs: on the card without
