@@ -61,11 +61,12 @@ and exits non-zero):
     split, kn and nk; bf16 nk fold on the tensor cores) and K10 (stream
     and noscale; bf16 nk on the tensor cores) against their plain versions
     at Qwen3-0.6B's decode shapes, the tied head, a prefill shape and
-    ragged M, bf16 and fp32, and at the shapes phase 17 gives K8 and K9
-    (M=8 decode steps, M=1,024 prefill), each with its route and, on the
-    tensor cores,
-    tile, splits and grid; the split-K reduction's determinism for int8
-    and int4; then the K10 path (``quant_bench.int4_attribution``);
+    ragged M, bf16 and fp32, at the shapes phase 17 gives K8 and K9 (M=8
+    decode steps, M=1,024 prefill), and K8 at the served int8 decode
+    (M=64 over Mistral-7B's linears and head), each with its route and,
+    on the tensor cores, tile, splits and grid; the split-K reduction's
+    determinism for int8 (16- and 64-row plans) and int4; then the K10
+    path (``quant_bench.int4_attribution``);
 14. K4's int8 and int4 pool variants against their plain versions at
     phase 2's cases;
 15. end-to-end quantized serving: phase 5's workload and seeded weights
@@ -282,9 +283,10 @@ TC_KERNELS = ("flash_fwd_kernel_tc<128>", "flash_fwd_kernel_tc<64>",
               "short_bwd_dq_kernel_tc<32>", "short_bwd_dq_kernel_tc<64>",
               "short_bwd_dkv_kernel_tc<128>", "short_bwd_dkv_kernel_tc<32>",
               "short_bwd_dkv_kernel_tc<64>", "int8_matmul_kernel_tc<1,1>",
-              "int8_matmul_kernel_tc<4,4>",
+              "int8_matmul_kernel_tc<4,2>", "int8_matmul_kernel_tc<4,4>",
               # <mode, MT, NT>: fold 0, stream 2, noscale 3
-              "int4_matmul_kernel_tc<0,1,1>", "int4_matmul_kernel_tc<0,4,4>",
+              "int4_matmul_kernel_tc<0,1,1>", "int4_matmul_kernel_tc<0,4,2>",
+              "int4_matmul_kernel_tc<0,4,4>",
               "int4_matmul_kernel_tc<2,1,1>", "int4_matmul_kernel_tc<3,1,1>")
 
 
@@ -1774,6 +1776,9 @@ def qm_atol(ref, dtype) -> float:
     return 1e-5 * float(ref.float().abs().max()) + 1e-5
 
 
+# (K, N) of Mistral-7B's linears (q/o, k/v, gate/up, down) and its head
+MISTRAL_LINEARS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+MISTRAL_HEAD = (4096, 32768)
 # (K, N) of Qwen3-0.6B's linears: q, k/v, o, gate/up, down
 QWEN3_LINEARS = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
                  (3072, 1024))
@@ -1785,13 +1790,16 @@ GEN_B, GEN_PROMPT, GEN_NEW, GEN_TRACE_STEPS = 8, 128, 64, 8
 
 def phase_quant_matmul(torch, qm, qb, flush, card):
     """K8 (kn and nk) at decode M=16 over every Qwen3-0.6B linear shape and
-    the tied head, at prefill M=2,048 for 1024->3072, and at ragged M (1,
-    7, 17, 100) and N (1,000); K9 fold and split (kn and nk, gs=128) at the
-    linear shapes, fold at the prefill shape and the ragged M; bf16 K8 (kn
+    the tied head, at prefill M=2,048 for 1024->3072, at ragged M (1, 7,
+    17, 100) and N (1,000), and bf16 ``nk`` at the served int8 decode
+    (M=64 over Mistral-7B's linears and head: the 64-row tiles, split
+    along K where they would not fill the SMs); K9 fold and split (kn and
+    nk, gs=128) at the linear shapes, fold at the prefill shape and the
+    ragged M; bf16 K8 (kn
     and nk) and K9 fold (kn and nk) at phase 17's shapes: its decode step
     (M=``GEN_B``: every linear, and the tied head for K8) and its prefill
     (M=``GEN_B * GEN_PROMPT``: every linear; at k/v, o and down the
-    64-row tiles would not fill the SMs and the 16 x 32 plan takes them);
+    64-row tiles alone would not fill the SMs and split K);
     K10 stream
     and noscale at M=8, K=N=2,048; bf16 and fp32, each against its plain
     version, with the dense bf16 ``torch.matmul`` (and
@@ -1799,9 +1807,9 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
     case prints its route (``int8_route`` / ``int4_route``: bf16 ``nk``
     on the tensor cores, K9's split mode on the CUDA cores) and, on the
     tensor cores, its tile, splits and grid. Five calls at a split-K shape
-    of K8 and of K9 must give the same bits and leave the tile counters at
-    0. Then the K10 path: ``quant_bench``'s int4 attribution, counts
-    zeroed before and read after."""
+    of K8 (16- and 64-row plans) and of K9 must give the same bits and
+    leave the tile counters at 0. Then the K10 path: ``quant_bench``'s
+    int4 attribution, counts zeroed before and read after."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1814,6 +1822,9 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
               for dt in (bf, f32) for lay in ("kn", "nk")]
     cases += [("K8", "ragged", m, 1024, 1000, bf, lay)
               for m in (1, 7, 17, 100) for lay in ("kn", "nk")]
+    # the served int8 decode: Mistral-7B's linears and head at 64 lanes
+    cases += [("K8", "decode-64", 64, k, n, bf, "nk")
+              for k, n in MISTRAL_LINEARS + (MISTRAL_HEAD,)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # K9 / K10 variants: (mode, layout)
     for k, n in QWEN3_LINEARS:
@@ -1934,7 +1945,8 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
     weights.clear()
     # determinism of the split-K reduction: same bits, counters back at 0
     stream = torch.cuda.current_stream().cuda_stream
-    for kern, m, k, n in (("K8", 16, 3072, 1024), ("K9", 16, 1024, 3072)):
+    for kern, m, k, n in (("K8", 16, 3072, 1024), ("K8", 64, 4096, 1024),
+                          ("K9", 16, 1024, 3072)):
         x = torch.randn(m, k, device=dev, generator=g).to(bf)
         w = torch.randn(n, k, device=dev, generator=g)
         if kern == "K8":
@@ -1952,8 +1964,9 @@ def phase_quant_matmul(torch, qm, qb, flush, card):
         check(splits > 1 and same and counters == 0,
               f"{kern} split-K M={m} K={k} N={n}: splits {splits}, "
               f"identical bits {same}, counters left {counters}")
-        phase(f"{kern} split-K determinism M={m} K={k} N={n} splits "
-              f"{splits}: 5 calls bit-identical, tile counters back at 0")
+        phase(f"{kern} split-K determinism M={m} K={k} N={n} plan "
+              f"{qm.int8_tc_plan(m, k, n, sms)}: 5 calls bit-identical, "
+              f"tile counters back at 0")
         del x, w, outs
     torch.cuda.empty_cache()
     zero_launches((qm.int4_attribution,))

@@ -497,9 +497,40 @@ def test_int8_unaligned_nk_takes_the_cuda_cores_on_card(cuda):
                                atol=_atol(ref, torch.bfloat16), rtol=0)
 
 
+# (K, N) of Mistral-7B's linears (q/o, k/v, gate/up, down) and its untied
+# head, and a ragged N
+MISTRAL_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                  (4096, 32768), (1024, 1000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [17, 33, 64, 100])
+@pytest.mark.parametrize("k,n", MISTRAL_SHAPES)
+def test_int8_64_row_tile_matches_plain_on_card(cuda, m, k, n):
+    """Above 16 rows K8 takes the 64-row tile (split along K where its
+    tiles would not fill the SMs) and matches the plain version."""
+    assert tqm.int8_tc_plan(m, k, n, tqm._sm_count(cuda.index or 0))[0] \
+        == 64
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    q, s = tqm.quantize_weight(torch.randn(n, k, device=cuda, generator=g),
+                               contract_axis=1)
+    before = tqm.int8_matmul.tc_launches
+    out = tqm.int8_matmul(x, q, s, w_layout="nk")
+    torch.cuda.synchronize()
+    assert tqm.int8_matmul.tc_launches == before + 1
+    ref = tqm.int8_matmul_ref(x, q, s, "nk")
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=_atol(ref, torch.bfloat16), rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(16, 3072, 1024), (16, 1024, 2048),
-                                   (17, 1024, 1000)])
+                                   (17, 1024, 1000),
+                                   # 64-row split plans: Mistral's decode
+                                   # k/v, q/o and down
+                                   (64, 4096, 1024), (64, 4096, 4096),
+                                   (64, 14336, 4096)])
 def test_int8_split_k_is_deterministic_on_card(cuda, m, k, n):
     """A split-K plan gives the same bits on every call, whatever order its
     CTAs finish in, and leaves every tile counter at 0."""
@@ -568,6 +599,27 @@ def test_int4_kernel_matches_plain_on_card(cuda, dtype, mode, layout, m, k,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [17, 33, 64, 100])
+@pytest.mark.parametrize("k,n", MISTRAL_SHAPES)
+def test_int4_fold_64_row_tile_matches_plain_on_card(cuda, m, k, n):
+    """K9 fold shares K8's plan: above 16 rows the 64-row tile, split
+    along K where it would not fill the SMs."""
+    assert tqm.int8_tc_plan(m, k, n, tqm._sm_count(cuda.index or 0))[0] \
+        == 64
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    p, s = tqm.quantize_weight_int4(
+        torch.randn(k, n, device=cuda, generator=g), group_size=128)
+    p = p.t().contiguous()
+    before = tqm.int4_matmul.tc_launches
+    out, ref = _int4_call(x, p, s, "fold", "nk", 128)
+    torch.cuda.synchronize()
+    assert tqm.int4_matmul.tc_launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=_atol(ref, torch.bfloat16), rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["fold", "stream", "noscale"])
 def test_int4_unaligned_nk_takes_the_cuda_cores_on_card(cuda, mode):
     """An ``nk`` packed weight view whose rows are not 16-byte aligned goes
@@ -593,6 +645,7 @@ def test_int4_unaligned_nk_takes_the_cuda_cores_on_card(cuda, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,m,k,n", [("fold", 16, 1024, 3072),
                                         ("fold", 1, 3072, 1024),
+                                        ("fold", 64, 4096, 1024),
                                         ("stream", 8, 2048, 2048),
                                         ("noscale", 8, 2048, 2048)])
 def test_int4_split_k_is_deterministic_on_card(cuda, mode, m, k, n):

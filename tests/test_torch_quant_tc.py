@@ -8,8 +8,9 @@ The kernels themselves run only on the card (``tests/test_torch_quant.py``'s
 kernel a call takes, and how the tensor-core one tiles and splits it, is
 Python and is held here: the routes by dtype, layout, mode, K, group size
 and alignment, and a plan that fills an H100's 132 SMs at every Qwen3-0.6B
-linear, the tied head and K10's shape, in whole k steps, with no split at
-the head or at prefill. The B-fragment recipes (int8 widening, int4 fold,
+linear, the tied head and K10's shape, and above 16 rows on 64-row tiles
+at Mistral-7B's, in whole k steps, with no split at the Qwen3-0.6B head or
+prefill and the plan at 16 rows or fewer pinned. The B-fragment recipes (int8 widening, int4 fold,
 stream and noscale) are emulated bit for bit in numpy on every byte."""
 
 import numpy as np
@@ -23,6 +24,9 @@ H100_SMS = 132
 QWEN3_LINEARS = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
                  (3072, 1024))
 QWEN3_HEAD = (1024, 151936)
+# (K, N) of Mistral-7B's linears (q/o, k/v, gate/up, down) and untied head
+MISTRAL_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                  (4096, 32768))
 
 
 def _grid(m, k, n, plan):
@@ -63,13 +67,50 @@ def test_tc_plan_splits_are_the_fewest_that_fill(m, k, n):
 
 
 @pytest.mark.parametrize("m,k,n,want", [
-    (100, 1024, 1000, (16, 32, 1)),      # 64-row tiles: 16 CTAs
-    (17, 1024, 1000, (16, 32, 3)),
+    (100, 1024, 1000, (64, 64, 6)),      # 64 x 128 tiles: 16 CTAs
+    (17, 1024, 1000, (64, 64, 16)),      # every step its own split
     (512, 1024, 3072, (64, 128, 1)),     # 64-row tiles: 192 CTAs
     (17, 1024, 151936, (64, 128, 1)),
 ])
 def test_tc_plan_takes_64_row_tiles_only_where_they_fill(m, k, n, want):
     assert tqm.int8_tc_plan(m, k, n, H100_SMS) == want
+
+
+@pytest.mark.parametrize("m", [17, 64, 100, 512, 1024])
+@pytest.mark.parametrize("k,n", MISTRAL_SHAPES)
+def test_tc_plan_above_16_rows_takes_64_row_tiles_that_fill(m, k, n):
+    """Above 16 rows the tile has 64 rows (no 16-row fallback), and where
+    its tiles are too few for the SMs K splits in whole 64-deep steps:
+    the fewest splits that fill the card, none empty."""
+    plan = tqm.int8_tc_plan(m, k, n, H100_SMS)
+    bm, bn, splits = plan
+    assert bm == 64 and (bm, bn) in tqm.TC_TILES
+    # 128 columns where those tiles alone fill the card, else 64
+    assert bn == (128 if -(-m // 64) * -(-n // 128) >= H100_SMS else 64)
+    assert _grid(m, k, n, plan) >= H100_SMS
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-k // tqm.TC_K_STEP)
+    per = -(-steps // splits)
+    assert 1 <= splits <= steps and -(-steps // per) == splits
+    for fewer in range(1, splits):
+        assert tiles * -(-steps // -(-steps // fewer)) < H100_SMS
+    if tiles >= H100_SMS:
+        assert splits == 1
+
+
+# (K, N) -> splits of the 16 x 32 tile at m <= 16, the plan before the
+# 64-row tile split K: Qwen3-0.6B's linears and head, Mistral-7B's
+PLAN_AT_16_ROWS = {
+    (1024, 2048): 3, (1024, 1024): 6, (2048, 1024): 5, (1024, 3072): 2,
+    (3072, 1024): 5, (1024, 151936): 1, (4096, 4096): 2, (4096, 1024): 5,
+    (4096, 14336): 1, (14336, 4096): 2, (4096, 32768): 1}
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("k,n", sorted(PLAN_AT_16_ROWS))
+def test_tc_plan_at_16_rows_or_fewer_is_unchanged(m, k, n):
+    assert tqm.int8_tc_plan(m, k, n, H100_SMS) == (16, 32,
+                                                   PLAN_AT_16_ROWS[(k, n)])
 
 
 def _nk(n, k, *, pad=0, offset=0):
@@ -209,6 +250,29 @@ def test_split_workspace_keeps_grown_buffers_and_splits_streams():
         tqm._WORKSPACE.clear()
         tqm._WORKSPACE.update(saved[0])
         tqm._RETIRED[:] = saved[1]
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 4096, 1024), (17, 1024, 1000),
+                                   (16, 3072, 1024), (64, 4096, 32768)])
+def test_split_workspace_holds_whole_tiles_of_every_split(monkeypatch, m, k,
+                                                          n):
+    """A split plan's workspace holds each tile's partials as whole bm x bn
+    tiles, one for each split (the kernel writes a thread's fragments at
+    fixed offsets, pad rows and columns included), and a counter a tile;
+    a plan that does not split asks for none."""
+    asked = []
+    monkeypatch.setattr(tqm, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(tqm, "_split_workspace", lambda dev, stream, floats,
+                        tiles: asked.append((floats, tiles)) or (
+                            torch.empty(1), torch.empty(1)))
+    x2 = torch.zeros(m, k, dtype=torch.bfloat16)
+    bm, bn, splits, ws, counters = tqm._tc_plan_args(x2, m, k, n, 0)
+    assert (bm, bn, splits) == tqm.int8_tc_plan(m, k, n, H100_SMS)
+    tiles = -(-m // bm) * -(-n // bn)
+    if splits > 1:
+        assert asked == [(splits * tiles * bm * bn, tiles)]
+    else:
+        assert asked == [] and ws == counters == 0
 
 
 # -- the B fragments, emulated bit for bit ------------------------------------

@@ -10,11 +10,12 @@
 //       two attribution modes of K9 (one compile-time `Mode` of the int4
 //       kernel here).
 //
-// What bounds them on the H100. At decode (M = 16 tokens) each weight byte
-// is used for 2 * 16 FLOPs: the weight stream over 3.35 TB/s is the bound,
-// and int8 / int4 storage is what halves / quarters it against bf16. At
-// prefill (M up to 2,048) the same call is bound by arithmetic: 2*M*K*N
-// FLOPs, 989 TFLOP/s on the bf16 tensor cores, 67 on the CUDA cores.
+// What bounds them on the H100. At decode (M = 16 to 64 tokens) each
+// weight byte is used for 2 * M FLOPs: the weight stream over 3.35 TB/s
+// is the bound, and int8 / int4 storage is what halves / quarters it
+// against bf16. At prefill (M up to 2,048) the same call is bound by
+// arithmetic: 2*M*K*N FLOPs, 989 TFLOP/s on the bf16 tensor cores, 67 on
+// the CUDA cores.
 //
 // Two designs. bf16 x against an `nk` weight (k contiguous, 16-byte
 // aligned rows, K % 16 == 0: every int8 / int4 linear and the tied head of
@@ -30,18 +31,18 @@
 // The tensor-core kernels (`qmm_tc<Fmt, MT, NT>`, one body for the weight
 // formats: int8, or an int4 mode). A CTA of 4 warps owns BM = 16 MT rows
 // and BN = 32 NT columns; warp w takes columns [8 NT w, 8 NT (w + 1)) of
-// every row, so each weight byte is converted once per CTA. K runs in
+// every row, so each weight byte is widened once per CTA. K runs in
 // steps of 64: the weight tile (int8 [BN][64], or int4 [BN][32] packed
 // bytes) and x's tile [BM][64] (bf16, 16-byte chunks XOR-swizzled on the
 // row), and for fold the step's group scales [BN][4], stream through a
 // `cp.async` ring of kQStages stages, zero-filled past M, N and K. Within
-// a step, lane (g, t4) reads k [16 t4, 16 t4 + 16) of its weight row with
+// a step, lane (g, t4) reads k [16 t4, 16 t4 + 16) of a weight row with
 // one load (16 int8 bytes, or 8 packed bytes: byte i holds k = 2i in its
-// low nibble and 2i + 1 in its high one, exactly one bf16x2 B register)
-// and x's elements of the same k of its two rows; `mma.sync.m16n8k16` j
-// (0..3) takes k 16 t4 + 4 j + {0..3}. That permutes k inside the step
-// identically for A and B, so the products are those of the Pallas
-// kernel, and every shared-memory read is conflict-free. B is built in
+// low nibble and 2i + 1 in its high one, exactly one bf16x2 register) and
+// x's elements of the same k; `mma.sync.m16n8k16` j (0..3) takes k 16 t4
+// + 4 j + {0..3}. That permutes k inside the step identically for both
+// operands, so the products are those of the Pallas kernel, and every
+// shared-memory read is conflict-free. The weights are widened in
 // registers (`b_frag`): int8 and K10 stream widen bytes to bf16 exactly
 // (`i8x4_to_bf16`; stream duplicates each packed byte for its two k);
 // noscale takes the nibbles (exact); fold multiplies each nibble by its
@@ -50,17 +51,27 @@
 // summation order changes. gs % 16 == 0, so a lane's 16 k lie in one
 // group: fold's scales ride the ring (4-byte `cp.async`, one per column
 // and 16 k), so they arrive with the weights three steps ahead instead
-// of costing a device-memory round trip inside each step. Two tiles
-// (`ops/quant_matmul.py` `int8_tc_plan`): 16 x 32 (MT = NT = 1) for
-// decode, where the weight stream wants the most CTAs, and 64 x 128 (MT =
-// NT = 4; int8 and fold) for prefill, where one converted B fragment
-// feeds four row tiles. The 16 x 32 tile splits K across blockIdx.z when
-// the tiles alone would not fill the SMs: each split CTA writes fp32
-// partials to a workspace [S, M, N], and the last CTA of a tile to finish
-// (a counter, `__threadfence`, `atomicAdd`) sums them in split order
-// 0..S-1 (deterministic) and resets the counter to 0. The epilogue is the
-// Pallas one: the fp32 sum times scale[n] (K8), times scale[scale_row, n]
-// (stream, noscale) or as it is (fold), rounded once to bf16.
+// of costing a device-memory round trip inside each step.
+//
+// Three tiles (`ops/quant_matmul.py` `int8_tc_plan`). 16 x 32 (MT = NT =
+// 1) up to 16 rows, where the weight stream wants the most CTAs: x is the
+// mma's A, the weights its B. Above 16 rows (int8 and fold), 64 x 128 (MT
+// = NT = 4) where those tiles fill the SMs, else 64 x 64 (MT = 4, NT =
+// 2): a 64-row tile holds a whole 64-lane decode batch, so each weight
+// byte is fetched and widened once and feeds eight 8-row mma tiles.
+// There the weights are the mma's A (their widened words are its
+// registers as they come; x's 16-byte loads give aligned B pairs), so no
+// register is moved into place for an mma.
+//
+// Any tile splits K across blockIdx.z when the tiles alone would not fill
+// the SMs: each split CTA writes its fp32 partial tile to the workspace
+// ([tile][split][BM * BN], each thread's sums at fixed offsets: coalesced
+// 16-byte stores and loads, no masks), and the last CTA of a tile to
+// finish (a counter, `__threadfence`, `atomicAdd`) sums them in split
+// order 0..S-1 (deterministic) and resets the counter to 0. The epilogue
+// is the Pallas one: the fp32 sum times scale[n] (K8), times
+// scale[scale_row, n] (stream, noscale) or as it is (fold), rounded once
+// to bf16.
 //
 // CUDA-core design, shaped by decode's 16 rows. A CTA of 8 warps owns 16
 // rows of x (blockIdx.y) and 32 output columns (blockIdx.x), one column
@@ -375,7 +386,8 @@ __device__ __forceinline__ void b_frag(const uint4& raw, int h, int jj,
 // with chunk c of row r at c ^ (r & 7); for fold, the scale of each 16 k
 // of each column, scale[(k0 + 16 c) / gs, n], at [col][c]. Past M, N or K
 // a chunk is zero-filled (K % 16 == 0: a 16-k piece is wholly in or out;
-// an int4 chunk of 32 k may be half live).
+// an int4 chunk of 32 k may be half live), from an address clamped into
+// the operand (row, and k, clamped: no select of a pointer a step).
 template <int Fmt, int MT, int NT>
 __device__ __forceinline__ void tc_load_step(
     const tc::bf16* __restrict__ x, const int8_t* __restrict__ w,
@@ -392,7 +404,8 @@ __device__ __forceinline__ void tc_load_step(
     if (WCH % tc::kThreads == 0 || i < WCH) {
       const int gk = k0 + 16 * KPB * c;   // the chunk's first k
       const bool live = n0 + r < N && gk < K;
-      const int8_t* src = live ? w + (long long)(n0 + r) * sn + gk / KPB : w;
+      const int8_t* src = w + (long long)min(n0 + r, N - 1) * sn +
+                          (gk < K ? gk / KPB : 0);
       const int bytes = KPB == 1 ? 16 : min(16, (K - gk) / KPB);
       tc::cp_async16(wbase + i * 16, src, live ? bytes : 0);
     }
@@ -402,7 +415,8 @@ __device__ __forceinline__ void tc_load_step(
     const int i = tid + it * tc::kThreads, r = i >> 3, c = i & 7;
     const int gk = k0 + 8 * c;
     const bool live = m0 + r < M && gk < K;
-    const tc::bf16* src = live ? x + (long long)(m0 + r) * K + gk : x;
+    const tc::bf16* src =
+        x + (long long)min(m0 + r, M - 1) * K + (gk < K ? gk : 0);
     tc::cp_async16(xbase + (r * 8 + (c ^ (r & 7))) * 16, src, live ? 16 : 0);
   }
   if constexpr (Fmt == kFold) {
@@ -419,16 +433,24 @@ __device__ __forceinline__ void tc_load_step(
   }
 }
 
-// One k step of a warp: acc[mi][nt] += x rows (16 mi ..) . weight columns
-// (8 nt ..) of the warp, over the stage's 64 k. Lane (g, t4) holds k [16
-// t4, 16 t4 + 16) of weight row 8 nt + g (16 int8 bytes, or 8 packed int4
-// bytes, in one load) and, for fold, that row's group scale for them (gs
-// % 16 == 0: the 16 k lie in one group); mma j takes k 16 t4 + 4 j + {0,
-// 1} as its first B register and + {2, 3} as its second, with the lane's
-// x elements of the same k as A words 0, 1 (rows g, g + 8) and 2, 3.
+// One k step of a warp over the stage's 64 k. Lane (g, t4) holds k [16
+// t4, 16 t4 + 16) of weight row 8 nt + g of the warp's 8 NT (16 int8
+// bytes, or 8 packed int4 bytes, in one load) and, for fold, that row's
+// group scale for them (gs % 16 == 0: the 16 k lie in one group); mma j
+// takes k 16 t4 + 4 j + {0, 1} as its k pair 2 t4 and + {2, 3} as its
+// pair 2 t4 + 8, weights and x alike.
+//  - 16-row tile (MT = 1): x is the mma's A (rows g, g + 8: four words
+// gathered from two loads), the weights its B: acc[nt] += x rows . weight
+// columns 8 nt ...
+//  - 64-row tiles (MT = 4): the weights are the mma's A, columns g and g
+// + 8 of each 16 (rows 8 nt + g, nt = 2 at + {0, 1}: their widened words
+// are the A registers as they come), and x its B, the 8 rows 8 bt ..
+// (one 16-byte load: two aligned B pairs): acc[8 at + bt] += weight
+// columns 16 at .. of the warp . x rows 8 bt .., so no register is moved
+// into place for an mma.
 template <int Fmt, int MT, int NT>
 __device__ __forceinline__ void tc_step(const char* stage, int warp,
-                                        int lane, float (&acc)[MT][NT][4]) {
+                                        int lane, float (&acc)[MT * NT][4]) {
   constexpr int BM = 16 * MT, BN = 32 * NT, WR = tc_wrow<Fmt>();
   const int g = lane >> 2, t4 = lane & 3;
   const int row = warp * 8 * NT + g;
@@ -448,20 +470,19 @@ __device__ __forceinline__ void tc_step(const char* stage, int warp,
     sc[nt] = Fmt == kFold ? st[(row + 8 * nt) * 4 + t4] : 1.f;
   }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {   // mma j = 2 h + jj: x elements [16 t4 +
-    uint32_t b[2][NT][2];         // 8 h, + 8)
+  for (int h = 0; h < 2; ++h) {   // mma j = 2 h + jj: k [16 t4 + 8 h, + 8)
+    const int chunk = (2 * t4 + h) ^ g;   // x rows r with r & 7 = g
+    if constexpr (MT == 1) {
+      uint32_t b[2][NT][2];
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj)
+      for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        b_frag<Fmt>(raw[nt], h, jj, sc[nt], b[jj][nt][0], b[jj][nt][1]);
-    const int chunk = (2 * t4 + h) ^ g;   // rows 16 mi + g (+ 8): r & 7 = g
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      const uint4 xlo = *reinterpret_cast<const uint4*>(
-          xt + ((16 * mi + g) * 8 + chunk) * 16);
-      const uint4 xhi = *reinterpret_cast<const uint4*>(
-          xt + ((16 * mi + g + 8) * 8 + chunk) * 16);
+        for (int nt = 0; nt < NT; ++nt)
+          b_frag<Fmt>(raw[nt], h, jj, sc[nt], b[jj][nt][0], b[jj][nt][1]);
+      const uint4 xlo =
+          *reinterpret_cast<const uint4*>(xt + (g * 8 + chunk) * 16);
+      const uint4 xhi =
+          *reinterpret_cast<const uint4*>(xt + ((g + 8) * 8 + chunk) * 16);
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         const uint32_t a[4] = {word_of(xlo, 2 * jj), word_of(xhi, 2 * jj),
@@ -469,7 +490,29 @@ __device__ __forceinline__ void tc_step(const char* stage, int warp,
                                word_of(xhi, 2 * jj + 1)};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          tc::mma_bf16(acc[mi][nt], a, b[jj][nt][0], b[jj][nt][1]);
+          tc::mma_bf16(acc[nt], a, b[jj][nt][0], b[jj][nt][1]);
+      }
+    } else {
+      uint32_t a[2][NT / 2][4];   // [jj][at]: columns g (0, 2), g + 8 (1, 3)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int at = 0; at < NT / 2; ++at) {
+          b_frag<Fmt>(raw[2 * at], h, jj, sc[2 * at], a[jj][at][0],
+                      a[jj][at][2]);
+          b_frag<Fmt>(raw[2 * at + 1], h, jj, sc[2 * at + 1], a[jj][at][1],
+                      a[jj][at][3]);
+        }
+#pragma unroll
+      for (int bt = 0; bt < BM / 8; ++bt) {
+        const uint4 xv = *reinterpret_cast<const uint4*>(
+            xt + ((8 * bt + g) * 8 + chunk) * 16);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int at = 0; at < NT / 2; ++at)
+            tc::mma_bf16(acc[at * (BM / 8) + bt], a[jj][at],
+                         word_of(xv, 2 * jj), word_of(xv, 2 * jj + 1));
       }
     }
   }
@@ -511,13 +554,11 @@ __device__ __forceinline__ void qmm_tc(
   const int s0 = blockIdx.z * per;
   const int nsteps = min(steps, s0 + per) - s0;
 
-  float acc[MT][NT][4];
+  float acc[MT * NT][4];   // the mma tiles of the warp (tc_step)
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
+  for (int t = 0; t < MT * NT; ++t)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kQStages - 1; ++s) {
@@ -539,71 +580,90 @@ __device__ __forceinline__ void qmm_tc(
   }
   tc::cp_async_wait<0>();
 
-  const int cbase = n0 + warp * 8 * NT + 2 * t4;
-  if (MT == 1 && splits > 1) {   // only the decode tile splits K
-    // fp32 partials to ws[split][row][col]; the last CTA of the tile sums
-    float* part = ws + (long long)blockIdx.z * M * N;
+  if (splits > 1) {
+    // fp32 partials in the tile's slice of the workspace, [tile][split]
+    // [BM * BN / 4] float4s: a thread's acc[t] at float4 t * kThreads +
+    // tid, so partials are written and read back with coalesced 16-byte
+    // accesses and no masks (rows and columns past M and N hold zeros).
+    // The last CTA of the tile to finish sums them.
+    constexpr int kPart = BM * BN / 4;   // float4s of one partial
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    float4* part = reinterpret_cast<float4*>(ws) +
+                   (long long)tile * splits * kPart + tid;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = cbase + 8 * nt;
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int row = m0 + 16 * mi + g + 8 * hr;
-          if (row >= M) continue;
-          float* p = part + (long long)row * N + col;
-          if (col < N) p[0] = acc[mi][nt][2 * hr];
-          if (col + 1 < N) p[1] = acc[mi][nt][2 * hr + 1];
-        }
-    }
+    for (int t = 0; t < MT * NT; ++t)
+      part[(long long)blockIdx.z * kPart + t * tc::kThreads] =
+          make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
     __threadfence();
     __syncthreads();
-    int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
+    int* counter = counters + tile;
     if (tid == 0) is_last = atomicAdd(counter, 1) == splits - 1;
     __syncthreads();
     if (!is_last) return;
     __threadfence();
-    // acc = partial 0 + partial 1 + ... in split order; each pass of 8
-    // splits issues its loads before its adds
-#pragma unroll 8
-    for (int s = 0; s < splits; ++s) {
-      const float* p = ws + (long long)s * M * N;
+    // acc = partial 0 + partial 1 + ... in split order; each pass loads
+    // kSumUnroll splits (16 float4s a thread, 8 on the 16-row tile, whose
+    // registers bound how many of its CTAs an SM holds) before it adds them
+    constexpr int kSumUnroll = (MT == 1 ? 8 : 16) / (MT * NT);
+    for (int sb = 0; sb < splits; sb += kSumUnroll) {
+      float4 v[kSumUnroll][MT * NT];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = cbase + 8 * nt;
+      for (int u = 0; u < kSumUnroll; ++u)
 #pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
+        for (int e = 0; e < MT * NT; ++e)
+          v[u][e] = sb + u < splits
+                        ? __ldcg(part + (long long)(sb + u) * kPart +
+                                 e * tc::kThreads)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int row = m0 + 16 * mi + g + 8 * hr;
-            const float* q = p + (long long)row * N + col;
-            const float v0 = row < M && col < N ? __ldcg(q) : 0.f;
-            const float v1 = row < M && col + 1 < N ? __ldcg(q + 1) : 0.f;
-            float* a = acc[mi][nt] + 2 * hr;
-            a[0] = s ? a[0] + v0 : v0;
-            a[1] = s ? a[1] + v1 : v1;
+      for (int u = 0; u < kSumUnroll; ++u)
+#pragma unroll
+        for (int t = 0; t < MT * NT; ++t) {
+          const float4 w = v[u][t];
+          float* a = acc[t];
+          if (sb + u == 0) {
+            a[0] = w.x, a[1] = w.y, a[2] = w.z, a[3] = w.w;
+          } else if (sb + u < splits) {
+            a[0] += w.x, a[1] += w.y, a[2] += w.z, a[3] += w.w;
           }
-      }
+        }
     }
     if (tid == 0) *counter = 0;   // ready for the next call
   }
+  if constexpr (MT == 1) {   // acc[nt]: rows g, g + 8; columns 2 t4 + {0, 1}
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = cbase + 8 * nt;
-    float sc0 = 1.f, sc1 = 1.f;
-    if constexpr (Fmt != kFold) {
-      sc0 = col < N ? ep_scale[col] : 0.f;
-      sc1 = col + 1 < N ? ep_scale[col + 1] : 0.f;
-    }
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = n0 + warp * 8 * NT + 8 * nt + 2 * t4;
+      float sc0 = 1.f, sc1 = 1.f;
+      if constexpr (Fmt != kFold) {
+        sc0 = col < N ? ep_scale[col] : 0.f;
+        sc1 = col + 1 < N ? ep_scale[col + 1] : 0.f;
+      }
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int row = m0 + 16 * mi + g + 8 * hr;
+        const int row = m0 + g + 8 * hr;
         if (row < M)
-          store_pair(out, N, row, col, acc[mi][nt][2 * hr] * sc0,
-                     acc[mi][nt][2 * hr + 1] * sc1);
+          store_pair(out, N, row, col, acc[nt][2 * hr] * sc0,
+                     acc[nt][2 * hr + 1] * sc1);
+      }
+    }
+  } else {   // acc[8 at + bt]: columns g, g + 8 of 16; rows 2 t4 + {0, 1}
+#pragma unroll
+    for (int at = 0; at < NT / 2; ++at)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int col = n0 + warp * 8 * NT + 16 * at + g + 8 * hr;
+        if (col >= N) continue;
+        const float sc = Fmt == kFold ? 1.f : ep_scale[col];
+#pragma unroll
+        for (int bt = 0; bt < BM / 8; ++bt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = m0 + 8 * bt + 2 * t4 + e;
+            if (row < M)
+              out[(long long)row * N + col] =
+                  __float2bfloat16(acc[at * (BM / 8) + bt][2 * hr + e] * sc);
+          }
       }
   }
 }
@@ -635,8 +695,8 @@ int4_matmul_kernel_tc(const tc::bf16* __restrict__ x,
                        M, N, K, gs, sn, splits, ws, counters);
 }
 
-// Grid and dynamic shared memory of a tensor-core launch (above 48 KB
-// only by opt-in).
+// Grid and dynamic shared memory of a tensor-core launch (above 48 KB,
+// with the static `is_last`, only by opt-in).
 template <int Fmt, int MT, int NT, typename Kern>
 static cudaError_t tc_prepare(Kern kern, int M, int N, int splits,
                               dim3& grid, int& smem) {
@@ -644,7 +704,7 @@ static cudaError_t tc_prepare(Kern kern, int M, int N, int splits,
   smem = kQStages * tc_stage_bytes<Fmt, MT, NT>();
   grid = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   if (grid.y > 65535 || splits > 65535) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024)
+  if (smem + 16 > 48 * 1024)
     return cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return cudaSuccess;
@@ -745,7 +805,10 @@ extern "C" int int8_matmul_launch(const void* x, const void* w,
     if (bm == 16 && bn == 32)
       return launch_int8_tc<1, 1>(x, w, s, out, M, N, K, sn, splits, wsp,
                                   cnt, st);
-    if (bm == 64 && bn == 128 && splits == 1)
+    if (bm == 64 && bn == 64)
+      return launch_int8_tc<4, 2>(x, w, s, out, M, N, K, sn, splits, wsp,
+                                  cnt, st);
+    if (bm == 64 && bn == 128)
       return launch_int8_tc<4, 4>(x, w, s, out, M, N, K, sn, splits, wsp,
                                   cnt, st);
     return (int)cudaErrorInvalidValue;
@@ -797,7 +860,10 @@ extern "C" int int4_matmul_launch(const void* x, const void* wp,
                                             scale_row, sn, splits, wsp, cnt,
                                             st);
     }
-    if (bm == 64 && bn == 128 && splits == 1 && mode == kFold)
+    if (bm == 64 && bn == 64 && mode == kFold)
+      return launch_int4_tc<kFold, 4, 2>(x, wp, s, out, M, N, K, gs,
+                                         scale_row, sn, splits, wsp, cnt, st);
+    if (bm == 64 && bn == 128 && mode == kFold)
       return launch_int4_tc<kFold, 4, 4>(x, wp, s, out, M, N, K, gs,
                                          scale_row, sn, splits, wsp, cnt, st);
     return (int)cudaErrorInvalidValue;

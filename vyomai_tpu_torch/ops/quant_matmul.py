@@ -200,9 +200,10 @@ def int4_matmul_ref(x, w_p, scale, kernel: str = "fold",
 # -- the routes and the tensor-core plan -----------------------------------------
 
 TC_K_STEP = 64   # k per step of the tensor-core kernel's ring
-# (bm, bn) tiles the tensor-core kernel is built for: 16 x 32 (decode, and
-# any M whose 64-row tiles would leave SMs idle) and 64 x 128 (prefill)
-TC_TILES = ((16, 32), (64, 128))
+# (bm, bn) tiles the tensor-core kernel is built for: 16 x 32 at m <= 16
+# (the most CTAs a weight stream can spread over); above it 64 x 128 where
+# those tiles alone fill the SMs, else 64 x 64 split along K
+TC_TILES = ((16, 32), (64, 64), (64, 128))
 
 
 def int8_route(x2: torch.Tensor, w_q: torch.Tensor, w_layout: str) -> str:
@@ -246,18 +247,24 @@ def int8_tc_plan(m: int, k: int, n: int, sm_count: int, *,
     """``(bm, bn, splits)`` of the tensor-core K8 or K9/K10 at ``[m, k] @
     [k, n]``.
 
-    Prefill (m > 16) takes 64 x 128 tiles, so each widened weight fragment
-    feeds four 16-row ``mma`` tiles, where those tiles alone fill the SMs;
-    decode (m <= 16), and an m whose 64-row tiles would not, takes 16 x 32
-    tiles, the most CTAs a weight stream can spread over (at the head,
-    4,748). If the 16 x 32 tiles are still fewer than ``sm_count``, K
-    splits across CTAs in whole 64-deep steps, none empty: the fewest
-    splits that make the grid at least ``sm_count`` CTAs (all of the steps
-    at most). The 64-row tile never splits. ``wide=False`` (K10's modes,
-    built for the 16 x 32 tile only) always takes the 16 x 32 tile."""
-    if wide and m > 16 and -(-m // 64) * -(-n // 128) >= sm_count:
-        return 64, 128, 1
-    tiles = -(-m // 16) * -(-n // 32)
+    Above 16 rows the tile has 64 rows: one CTA holds up to 64 rows of x,
+    so a decode batch of 64 fetches and widens each weight byte once, and
+    one widened weight fragment feeds eight 8-row ``mma`` tiles. It is 128
+    columns wide where those tiles alone fill the SMs, else 64 (timed
+    fastest at the int8 decode's shapes, against 32 and 128: ``PERF.md``
+    §6). At m <= 16 the tile is 16 x 32, the most CTAs a weight stream can
+    spread over (at the head, 4,748). ``wide=False`` (K10's modes, built
+    for the 16 x 32 tile only) always takes the 16 x 32 tile. If the tiles
+    are fewer than ``sm_count``, K splits across CTAs in whole 64-deep
+    steps, none empty: the fewest splits that make the grid at least
+    ``sm_count`` CTAs (all of the steps at most)."""
+    if not wide or m <= 16:
+        bm, bn = TC_TILES[0]
+    elif -(-m // 64) * -(-n // 128) >= sm_count:
+        bm, bn = TC_TILES[2]
+    else:
+        bm, bn = TC_TILES[1]
+    tiles = -(-m // bm) * -(-n // bn)
     steps = -(-k // TC_K_STEP)
     splits = 1
     if tiles < sm_count:
@@ -267,7 +274,7 @@ def int8_tc_plan(m: int, k: int, n: int, sm_count: int, *,
             if splits * tiles >= sm_count or want >= steps:
                 break
             want += 1
-    return 16, 32, splits
+    return bm, bn, splits
 
 
 @functools.lru_cache(maxsize=None)
@@ -311,10 +318,10 @@ def _tc_plan_args(x2, m, k_dim, n_dim, stream, *, wide=True):
     bm, bn, splits = int8_tc_plan(m, k_dim, n_dim,
                                   _sm_count(x2.device.index), wide=wide)
     ws = counters = 0
-    if splits > 1:
+    if splits > 1:   # each tile's partials are whole bm x bn tiles
         tiles = -(-m // bm) * -(-n_dim // bn)
-        wsb, cnt = _split_workspace(x2.device, stream, splits * m * n_dim,
-                                    tiles)
+        wsb, cnt = _split_workspace(x2.device, stream,
+                                    splits * tiles * bm * bn, tiles)
         ws, counters = wsb.data_ptr(), cnt.data_ptr()
     return bm, bn, splits, ws, counters
 
