@@ -12,7 +12,9 @@ serving path is held to the same reference: a padded prefill and decode
 steps through the paged pool and the conv lanes (logits), and the engine
 end to end (each served token the reference's best within 1e-9), with
 lanes refilled after finished requests and a suffix chunked across
-prefill calls.
+prefill calls. An abort while a chained tick is in flight leaves the other
+lanes' tokens as the synchronous engine serves them, on the CPU and (the
+``cuda`` case, skipped without a card) through the captured graphs.
 """
 
 from dataclasses import asdict
@@ -223,3 +225,72 @@ def test_quantize_model_leaves_the_expert_banks():
     eng = _engine(model, dtype=torch.int8)
     sid = eng.submit(_ids(6, 50).tolist(), max_new_tokens=4)
     assert len(eng.run()[sid]) == 4
+
+
+def _abort_mid_chain(model, pipeline, **kw):
+    """Three lanes served with ``pipeline_decode=pipeline``; the middle
+    request is aborted after three steps (in flight in a chained tick when
+    pipelined), and a new request takes its lane. Returns the tokens of
+    the first and last requests, the new request's prompt and tokens, and
+    the engine."""
+    eng = _engine(model, max_batch=3, max_new_tokens=12,
+                  pipeline_decode=pipeline, **kw)
+    prompts = [_ids(n, 60 + n).tolist() for n in (7, 5, 9)]
+    sids = [eng.submit(p) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    if pipeline:
+        assert eng._inflight is not None
+        assert eng.counters["chained_ticks"] > 0
+    lane = eng.active[sids[1]].lane
+    assert eng.abort(sids[1])
+    new = _ids(6, 70).tolist()
+    sid = eng.submit(new)
+    eng.step()
+    assert eng.active[sid].lane == lane       # the only free lane
+    done = eng.run()
+    assert sorted(done) == [sids[0], sids[2], sid]
+    assert eng.kv.num_free() == eng.kv.num_blocks
+    return [done[sids[0]], done[sids[2]]], new, done[sid], eng
+
+
+def test_abort_mid_chain_with_conv_lanes_matches_sync():
+    """An abort while a chained tick is in flight: the other lanes' tokens
+    are the synchronous engine's with the same abort, every block comes
+    back, and a request admitted into the freed lane (its conv state
+    written by the aborted tick) serves the reference's best tokens."""
+    model = _model()
+    piped, new, got, _ = _abort_mid_chain(model, True)
+    synced, _, _, _ = _abort_mid_chain(model, False)
+    assert piped == synced
+    assert all(len(t) == 12 for t in piped)
+    lg = _ref(model, new + got)[len(new) - 1:-1]
+    served = lg.gather(1, torch.tensor(got)[:, None])[:, 0]
+    assert (lg.max(-1).values - served).max() <= TOL
+
+
+@pytest.mark.cuda
+def test_abort_mid_chain_with_conv_lanes_matches_sync_on_card():
+    """The same on the card, in bf16 through the captured graphs and K11:
+    the pipelined engine's other lanes equal the synchronous engine's,
+    and the request in the freed lane serves the tokens a fresh engine
+    serves it alone (bf16 routing near-ties make the float reference's
+    best an unsteady yardstick at this precision)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA graphs and K11 have no CPU "
+                    "mode)")
+    cfg = tt.Lfm2MoeConfig(**dict(
+        asdict(CFG), vocab_size=512, hidden_size=256, intermediate_size=128,
+        moe_intermediate_size=64, max_position_embeddings=256))
+    model = tt.Lfm2MoeForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(False)
+    kw = dict(dtype=torch.bfloat16, device="cuda", block_size=16,
+              prefill_buckets=(32, 64))
+    piped, new, got, eng = _abort_mid_chain(model, True, **kw)
+    synced, _, _, _ = _abort_mid_chain(model, False, **kw)
+    assert eng._graph.graph is not None
+    assert piped == synced
+    fresh = _engine(model, max_batch=3, max_new_tokens=12, **kw)
+    sid = fresh.submit(new)
+    assert fresh.run()[sid] == got

@@ -267,8 +267,9 @@ def _counts(wrappers):
 
 
 def _graph_call(graph, rows):
+    x = graph.stage()
     for name, v in _card_rows(rows).items():
-        graph.stage[name].numpy()[...] = v
+        x[name][...] = v
     graph.start()
     return graph.run()
 

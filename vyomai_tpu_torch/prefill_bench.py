@@ -37,7 +37,7 @@ BUCKETS = (32, 64, 128, 256, 512)
 
 
 def inputs(bucket: int) -> dict:
-    """Host arrays of one call, in ``PrefillGraph.stage``'s names."""
+    """Host arrays of one call, in ``PrefillGraph.stage()``'s names."""
     g = torch.Generator().manual_seed(bucket)
     ctx = CACHED + bucket
     pos = CACHED + torch.arange(bucket)
@@ -130,8 +130,9 @@ def main(argv=None):
         x = inputs(b)
         dev_x = [t.to(dev) for t in x.values()]
         graph = graphs[b]
+        staged = graph.stage()
         for name, t in x.items():
-            graph.stage[name].copy_(t)
+            staged[name][...] = t.numpy()
 
         def replay():
             graph.start()

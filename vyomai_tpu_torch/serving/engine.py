@@ -20,9 +20,9 @@ tick is in flight the next one is dispatched from its device carry (final
 tokens and eos flags) before the first is read back, whenever the batch is
 unchanged and every lane can take another step (``_try_chain``); otherwise
 the tick is read back at once and the next one is scheduled from the host
-(``pipeline_decode=False`` always does that). A tick's inputs go up from
-pinned staging buffers and its tokens come back into one, behind an event,
-so neither copy waits for a tick in flight. Greedy by default;
+(``pipeline_decode=False`` always does that). The engine schedules: the
+graphs own their host staging, the copies up and back and the events
+(``paged_model``). Greedy by default;
 ``do_sample`` draws with engine-wide temperature/top-p/min-p from a seeded
 ``torch.Generator``.
 
@@ -168,27 +168,26 @@ class ContinuousBatchEngine:
         self.pipeline_decode = bool(pipeline_decode)
         self._sampling = paged_model.sampling_tensors(
             self.device, self.temperature, self.top_p, self.min_p)
+        # a chained tick must never write KV into blocks the host frees at
+        # the harvest before it. Every finish the device cannot see (a
+        # second eos id) rules chaining out; the features of the JAX engine
+        # that also do (speculation, FSMs, penalties, min_tokens, logit
+        # bias, a window, stop sequences, best_of) are not ported and raise
+        self._chain = self.pipeline_decode and len(self.eos_ids) <= 1
         self._graph = None        # the decode tick, built at the first one
         # bucket -> its PrefillGraph, built at the first prefill call
         self._prefill_graphs = {}
-        self._stages = []         # its two sets of staging buffers
         self._inflight = None
         self.pool = paged_model.init_pool(self.cfg, num_blocks, block_size,
                                           dtype=dtype, device=self.device)
         self.lane_state = paged_model.init_lane_state(model, max_batch)
-        if self.radix_cache and self.lane_state is not None and \
-                self.lane_state.conv is not None:
+        if self.radix_cache and paged_model.conv_layers(model):
             raise NotImplementedError(
                 "radix_cache=True with a model whose conv layers keep "
                 "per-lane state: reusing a cached prefix needs the conv "
                 "state at the prefix's end, which the radix cache does not "
                 "keep; pass radix_cache=False")
         self._free_lanes = list(range(max_batch))     # a heap
-        # the prefill's MoE counters, read back with its tokens
-        self._moe_read = None
-        if self.lane_state is not None and self.lane_state.moe is not None:
-            self._moe_read = torch.zeros(
-                2, dtype=torch.int64, pin_memory=self.device.type == "cuda")
         self.waiting: deque = deque()
         self.active: Dict[int, SequenceState] = {}
         self.needs_prefill: deque = deque()
@@ -431,15 +430,11 @@ class ContinuousBatchEngine:
             logits = graph.run()
             t_dispatched = clock()
             with span("engine.prefill.read"):
-                moe = self._moe_read is not None
-                if moe:   # complete once the tokens' read-back returns
-                    self._moe_read.copy_(self.lane_state.moe[1],
-                                         non_blocking=graph.graph is not None)
                 # the next replay overwrites the logits: read them first
-                next_tokens = self._pick_tokens(logits)
-                if moe:
-                    (c["moe_rows_prefill"],
-                     c["moe_expert_visits_prefill"]) = self._moe_read.tolist()
+                next_tokens = paged_model.pick_tokens(
+                    logits, self.do_sample, self.generator,
+                    self._sampling).cpu().numpy()
+                c.update(graph.counts())
                 for i, state in enumerate(states):
                     done = state.num_cached_tokens + len(suffixes[i])
                     if done >= state.prefill_len:
@@ -470,11 +465,9 @@ class ContinuousBatchEngine:
 
     def _prefill_inputs(self, states):
         """Write the call's padded inputs, ``[prefill_group, bucket]``, into
-        its bucket's staging set, every row rewritten (rows past ``states``
-        dead); returns that bucket's graph and each state's suffix, and
-        counts the call's tokens, slots and attention work. The set is free
-        to write: the read-back of the last call that used it waited for
-        the device to pass that call's copy."""
+        its bucket's staging set (rows past ``states`` dead); returns that
+        bucket's graph and each state's suffix, and counts the call's
+        tokens, slots and attention work."""
         cap = self.prefill_buckets[-1]
         bs = self.block_size
         suffixes = [s.tokens[s.num_cached_tokens:
@@ -483,9 +476,7 @@ class ContinuousBatchEngine:
         t_pad = _bucket(max(len(sf) for sf in suffixes),
                         self.prefill_buckets)
         graph = self.prefill_graphs()[t_pad]
-        x = {name: t.numpy() for name, t in graph.stage.items()}
-        for name, (fill, _) in graph.dead.items():
-            x[name].fill(fill)
+        x = graph.stage()
         pairs = ctx = 0
         for i, (state, suffix) in enumerate(zip(states, suffixes)):
             cached, t = state.num_cached_tokens, len(suffix)
@@ -508,14 +499,6 @@ class ContinuousBatchEngine:
         c["prefill_attn_pairs"] += pairs
         c["prefill_ctx_tokens"] += ctx
         return graph, suffixes
-
-    def _pick_tokens(self, logits) -> np.ndarray:
-        if self.do_sample:
-            toks = paged_model.sample_tokens(logits, self.generator,
-                                             *self._sampling)
-        else:
-            toks = torch.argmax(logits, dim=-1)
-        return toks.cpu().numpy()
 
     def _append_token(self, state: SequenceState, tok: int):
         state.tokens.append(tok)
@@ -570,7 +553,7 @@ class ContinuousBatchEngine:
             rec = self._dispatch_decode()
         if rec is None:
             return
-        if rec["chainable"]:
+        if self._chain:
             self._inflight = rec          # harvested next step, overlapped
         else:
             self._harvest_decode(rec)
@@ -579,15 +562,8 @@ class ContinuousBatchEngine:
         states = [s for s in self.active.values() if not s.finished]
         if not states:
             return None
-        b = self.max_batch
-        tokens = np.zeros(b, dtype=np.int32)
-        positions = np.zeros(b, dtype=np.int64)
-        live_mask = np.zeros(b, dtype=bool)
-        budget = np.zeros(b, dtype=np.int32)
-        tables = np.full((b, self.max_blocks_per_seq), -1, dtype=np.int32)
-        live = []
+        grants = []
         for state in states:
-            i = state.lane
             pos = len(state.tokens) - 1  # position of the latest token
             # budget the whole horizon up front so slot arithmetic never
             # walks off the block table; cap by table capacity
@@ -596,50 +572,25 @@ class ContinuousBatchEngine:
             h = max(min(self.decode_horizon, remaining, cap), 1)
             while h >= 1 and not self.kv.allocate(state, pos + h):
                 h //= 2  # pool pressure: shrink the grant
-            if h < 1:
-                continue  # pool exhausted: retry next tick
-            tokens[i] = state.tokens[-1]
-            positions[i] = pos
-            live_mask[i] = True
-            budget[i] = h
-            tables[i, :len(state.block_table)] = state.block_table
-            live.append((i, state, h))
-        if not live:
+            if h >= 1:   # else the pool is exhausted: retry next tick
+                grants.append((state.lane, state, pos, h))
+        if not grants:
             self._preempt_youngest()
             return None
-        self.counters["decode_ticks"] += 1
-        with span("engine.tick.launch"):
-            rec = self._launch_tick(positions, tables, live_mask, budget,
-                                    tokens)
-        # chain safety: a chained tick must never write KV into blocks the
-        # host frees at the harvest before it. Every finish the device
-        # cannot see (a second eos id) rules chaining out; the features of
-        # the JAX engine that also do (speculation, FSMs, penalties,
-        # min_tokens, logit bias, a window, stop sequences, best_of) are
-        # not ported and raise
-        rec["chainable"] = self.pipeline_decode and len(self.eos_ids) <= 1
-        rec["live"] = live
-        return rec
+        return self._launch(grants, chain=False)
 
     def _try_chain(self, prev):
         """Dispatch the next tick from the in-flight tick's device carry
         (no host round trip): only when the batch is unchanged and every
         lane can take at least one more step. Returns the new in-flight
         record, or None (the caller harvests and ticks synchronously)."""
-        if not prev["chainable"]:
-            return None
         states = [s for s in self.active.values() if not s.finished]
         prev_states = [s for _, s, _ in prev["live"]]
         if len(states) != len(prev_states) or \
                 any(a is not b for a, b in zip(states, prev_states)):
             return None             # admission/finish changed composition
-        b = self.max_batch
         bs = self.block_size
-        positions = np.zeros(b, dtype=np.int64)
-        live_mask = np.zeros(b, dtype=bool)
-        budget = np.zeros(b, dtype=np.int32)
-        tables = np.full((b, self.max_blocks_per_seq), -1, dtype=np.int32)
-        live = []
+        grants = []
         for i, state, h_prev in prev["live"]:
             # the in-flight tick is not harvested yet: a lane still alive
             # emitted its whole grant (an eos'd lane is masked on the card
@@ -657,74 +608,41 @@ class ContinuousBatchEngine:
                 return None         # someone at a cap: drain + sync tick
             if not self.kv.allocate(state, pos1 + h1):
                 return None         # pool pressure: the sync path handles it
-            positions[i] = pos1
-            live_mask[i] = True
-            budget[i] = h1
-            tables[i, :len(state.block_table)] = state.block_table
-            live.append((i, state, h1))
+            grants.append((i, state, pos1, h1))
+        return self._launch(grants, chain=True)
+
+    def _launch(self, grants, chain: bool):
+        """Queue a tick for ``grants``, ``(lane, state, position, grant)``
+        each (the other lanes dead; ``chain``: from the in-flight tick's
+        carry), of ``min(horizon, largest grant)`` steps; returns its
+        in-flight record."""
         self.counters["decode_ticks"] += 1
-        self.counters["chained_ticks"] += 1
+        self.counters["chained_ticks"] += chain
+        graph = self.horizon_graph()
         with span("engine.tick.launch"):
-            rec = self._launch_tick(positions, tables, live_mask, budget)
-        rec.update(chainable=True, live=live)
-        return rec
+            x = graph.stage(self._wait)
+            for i, state, pos, h in grants:
+                x["tokens"][i] = state.tokens[-1]   # not sent up by a chain
+                x["positions"][i] = pos
+                x["live"][i] = True
+                x["budget"][i] = h
+                x["tables"][i, :len(state.block_table)] = state.block_table
+            n = min(self.decode_horizon, max(g[3] for g in grants))
+            tick = graph.launch(n, chain)
+        return {"tick": tick, "live": [(i, s, h) for i, s, _, h in grants]}
 
     def horizon_graph(self):
-        """The decode tick and its two sets of staging buffers (pinned on
-        the card), built at the first tick."""
+        """The decode tick (``paged_model.HorizonGraph``, with its staging),
+        built at the first tick."""
         if self._graph is None:
-            b, cuda = self.max_batch, self.device.type == "cuda"
             self._graph = paged_model.HorizonGraph(
-                self.model, self.pool, b, self.max_blocks_per_seq,
-                self.decode_horizon, do_sample=self.do_sample,
+                self.model, self.pool, self.max_batch,
+                self.max_blocks_per_seq, self.decode_horizon,
+                do_sample=self.do_sample,
                 eos=-1 if self.eos_token_id is None else self.eos_token_id,
                 generator=self.generator, samp=self._sampling,
                 state=self.lane_state)
-
-            def host(*shape, dtype):
-                return torch.zeros(shape, dtype=dtype, pin_memory=cuda)
-            self._stages = [{
-                "tokens": host(b, dtype=torch.int32),
-                "positions": host(b, dtype=torch.int64),
-                "tables": host(b, self.max_blocks_per_seq, dtype=torch.int32),
-                "live": host(b, dtype=torch.bool),
-                "budget": host(b, dtype=torch.int32),
-                "out": host(b, self.decode_horizon, dtype=torch.int32),
-                "event": torch.cuda.Event() if cuda else None}
-                for _ in range(2)]
-            if self._moe_read is not None:
-                for stage in self._stages:   # the decode MoE counters
-                    stage["moe"] = host(2, dtype=torch.int64)
         return self._graph
-
-    def _launch_tick(self, positions, tables, live_mask, budget, tokens=None):
-        """Queue one tick: its inputs copied up from a staging set, the
-        graph's steps (``min(horizon, max budget)``, a count the host
-        knows), and its tokens copied back into the set behind its event.
-        ``tokens=None`` chains from the last tick's carry. A set is
-        refilled only once its previous tick's event has completed."""
-        graph = self.horizon_graph()
-        stage = self._stages.pop(0)
-        self._stages.append(stage)
-        if stage["event"] is not None:
-            self._wait(stage["event"])
-        for name, x in (("positions", positions), ("tables", tables),
-                        ("live", live_mask), ("budget", budget),
-                        ("tokens", tokens)):
-            if x is not None:
-                stage[name].numpy()[...] = x
-        cuda = stage["event"] is not None
-        graph.start(stage["positions"], stage["tables"], stage["live"],
-                    stage["budget"],
-                    tokens=None if tokens is None else stage["tokens"],
-                    non_blocking=cuda)
-        gen, _, _ = graph.run(int(min(self.decode_horizon, budget.max())))
-        stage["out"].copy_(gen, non_blocking=cuda)
-        if "moe" in stage:
-            stage["moe"].copy_(self.lane_state.moe[0], non_blocking=cuda)
-        if cuda:
-            stage["event"].record()
-        return {"stage": stage}
 
     def _wait(self, event):
         """Block until ``event`` has completed; the time is kept out of
@@ -735,15 +653,10 @@ class ContinuousBatchEngine:
         self._waited_ns += clock() - t0
 
     def _harvest_decode(self, rec):
-        stage = rec["stage"]
-        if stage["event"] is not None:
-            self._wait(stage["event"])   # this tick's tokens, and no later
+        # this tick's tokens, and no later
+        gen, counts = self._graph.read(rec["tick"], self._wait)
         with span("engine.tick.harvest"):
-            gen = stage["out"].numpy().copy()
-            if "moe" in stage:
-                c = self.counters
-                (c["moe_rows_decode"],
-                 c["moe_expert_visits_decode"]) = stage["moe"].tolist()
+            self.counters.update(counts)
             for i, state, h in rec["live"]:
                 if state.finished:
                     # finished at an earlier harvest (or aborted) while

@@ -64,6 +64,12 @@ def kv_layers(config) -> list:
     return [i for i, t in enumerate(types) if t == "full_attention"]
 
 
+def conv_layers(model) -> list:
+    """The layers with a gated short conv, which keeps per-lane state."""
+    return [i for i, layer in enumerate(model.layers)
+            if getattr(layer, "conv", None) is not None]
+
+
 class LaneState:
     """What a model with conv layers or experts keeps beside the paged
     pool, for ``lanes`` decode lanes (:func:`init_lane_state`):
@@ -82,8 +88,7 @@ class LaneState:
 
     def __init__(self, model, lanes: int):
         cfg, device = model.config, model.device
-        convs = [i for i, layer in enumerate(model.layers)
-                 if getattr(layer, "conv", None) is not None]
+        convs = conv_layers(model)
         self.conv_index = {li: j for j, li in enumerate(convs)}
         self.conv = None
         if convs:
@@ -353,76 +358,86 @@ def sample_tokens(logits, generator: Optional[torch.Generator], temperature,
         torch.int32)
 
 
-class _Carry:
-    """A horizon's inputs and carry, as tensors updated in place: tokens
-    ``[B]`` int32, positions ``[B]`` int64, tables ``[B, MAXB]`` int32,
-    ``alive``/``eos_dead`` ``[B]`` bool, budget ``[B]`` int32, the step
-    counter (a 0-d int64 tensor) and the output ``[B, horizon]`` int32."""
+def pick_tokens(logits, do_sample: bool, generator, samp) -> torch.Tensor:
+    """[B] next tokens: drawn from the masked distribution (int32;
+    ``samp`` as :func:`sampling_tensors` gives it) or greedy (int64)."""
+    if do_sample:
+        return sample_tokens(logits, generator, *samp)
+    return torch.argmax(logits, dim=-1)
 
-    def __init__(self, b: int, maxb: int, horizon: int, device):
-        def zeros(*shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=device)
-        self.tokens = zeros(b, dtype=torch.int32)
-        self.pos = zeros(b, dtype=torch.int64)
-        self.tables = torch.full((b, maxb), -1, dtype=torch.int32,
-                                 device=device)
-        self.alive = zeros(b, dtype=torch.bool)
-        self.eos_dead = zeros(b, dtype=torch.bool)
-        self.budget = zeros(b, dtype=torch.int32)
-        self.step = zeros(dtype=torch.int64)
-        self.out = zeros(b, horizon, dtype=torch.int32)
+
+def _tick_spec(b: int, maxb: int) -> dict:
+    """A horizon's inputs in load order, as :class:`_Staged` takes them;
+    its steps update tokens, positions and live in place."""
+    return {"tokens": (0, torch.int32, (b,)),
+            "positions": (0, torch.int64, (b,)),
+            "tables": (-1, torch.int32, (b, maxb)),
+            "budget": (0, torch.int32, (b,)),
+            "live": (False, torch.bool, (b,))}
+
+
+def _buffers(spec: dict, **where) -> dict:
+    """One tensor per ``spec`` entry, filled as a dead row; ``where``:
+    ``device=`` or ``pin_memory=``."""
+    return {name: torch.full(shape, fill, dtype=dtype, **where)
+            for name, (fill, dtype, shape) in spec.items()}
+
+
+class _Carry:
+    """What a horizon carries besides its inputs, as tensors updated in
+    place: ``eos_dead`` ``[B]`` bool, the step counter (a 0-d int64
+    tensor), the output ``[B, horizon]`` int32 and the lane index."""
+
+    def __init__(self, b: int, horizon: int, device):
+        self.eos_dead = torch.zeros(b, dtype=torch.bool, device=device)
+        self.step = torch.zeros((), dtype=torch.int64, device=device)
+        self.out = torch.zeros(b, horizon, dtype=torch.int32, device=device)
         self.lanes = torch.arange(b, device=device)
 
-    def start(self, positions, tables, live, budget, tokens=None,
-              dead_mask=None, non_blocking: bool = False):
-        """Load a tick's inputs. ``tokens=None`` keeps the last tick's
-        final tokens, the carry of a chained tick. ``dead_mask`` (the JAX
-        argument: lanes an earlier chained tick killed by eos) is taken off
-        ``live`` and seeds ``eos_dead``, so the flag accumulates across
-        chained ticks; it may be ``self.eos_dead`` itself."""
-        nb = non_blocking
-        if tokens is not None:
-            self.tokens.copy_(tokens, non_blocking=nb)
-        self.pos.copy_(positions, non_blocking=nb)
-        self.tables.copy_(tables, non_blocking=nb)
-        self.budget.copy_(budget, non_blocking=nb)
-        self.alive.copy_(live, non_blocking=nb)
+    def start(self, x: dict, dead_mask=None, **given):
+        """Load a tick into its inputs ``x``, from the ``given`` tensors
+        (``tokens=None``: the last tick's final tokens, a chained tick's
+        carry). ``dead_mask`` (the JAX argument: lanes an earlier chained
+        tick killed by eos; may be ``self.eos_dead``) is taken off ``live``
+        and seeds ``eos_dead``, so the flag accumulates over a chain."""
+        for name, t in given.items():
+            if t is not None:
+                x[name].copy_(t)
         if dead_mask is None:
             self.eos_dead.zero_()
         elif dead_mask is not self.eos_dead:
-            self.eos_dead.copy_(dead_mask, non_blocking=nb)
-        self.alive &= ~self.eos_dead
+            self.eos_dead.copy_(dead_mask)
+        x["live"] &= ~self.eos_dead
         self.step.zero_()
         self.out.zero_()
 
 
-def _step(model, pool, c: _Carry, do_sample: bool, eos: int, generator,
-          samp, state=None) -> torch.Tensor:
-    """One step of the horizon on ``c``, in place, with nothing read back
-    to the host: a CUDA graph captures it as it is. A dead lane is a no-op:
-    its write slot is -1 (dropped), its context length 0 (K4 gives 0), its
-    token and position stay and its output is 0. Returns the step's logits
-    [B, V]."""
+def _step(model, pool, x: dict, c: _Carry, do_sample: bool, eos: int,
+          generator, samp, state=None) -> torch.Tensor:
+    """One step of the horizon on its inputs ``x`` and carry ``c``, in
+    place, with nothing read back to the host: a CUDA graph captures it as
+    it is. A dead lane is a no-op: its write slot is -1 (dropped), its
+    context length 0 (K4 gives 0), its token and position stay and its
+    output is 0. Returns the step's logits [B, V]."""
+    tokens, pos, alive = x["tokens"], x["positions"], x["live"]
+    tables = x["tables"]
     bs = pool_parts(pool)[0].shape[3]
-    maxb = c.tables.shape[1]
-    blk = c.tables[c.lanes, (c.pos // bs).clamp_max(maxb - 1)]
-    slot_blocks = torch.where(c.alive, blk, -1)
-    seq_lens = torch.where(c.alive, c.pos + 1, 0).to(torch.int32)
-    logits = decode(model, pool, c.tokens, c.pos, c.tables, seq_lens,
-                    slot_blocks, c.pos % bs, state)
-    if do_sample:
-        nxt = sample_tokens(logits, generator, *samp)
-    else:
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-    nxt = torch.where(c.alive, nxt, c.tokens)            # freeze dead lanes
+    maxb = tables.shape[1]
+    blk = tables[c.lanes, (pos // bs).clamp_max(maxb - 1)]
+    slot_blocks = torch.where(alive, blk, -1)
+    seq_lens = torch.where(alive, pos + 1, 0).to(torch.int32)
+    logits = decode(model, pool, tokens, pos, tables, seq_lens,
+                    slot_blocks, pos % bs, state)
+    nxt = pick_tokens(logits, do_sample, generator, samp).to(torch.int32)
+    nxt = torch.where(alive, nxt, tokens)                 # freeze dead lanes
     c.out.scatter_(1, c.step.expand(c.out.shape[0], 1),
-                   torch.where(c.alive, nxt, 0)[:, None])
+                   torch.where(alive, nxt, 0)[:, None])
     # eos-death apart from the budget freeze: the next chained tick
     # revives a budget-frozen lane, never an eos'd one
-    c.eos_dead |= c.alive & (nxt == eos)
-    c.alive &= (nxt != eos) & (c.step + 1 < c.budget)
-    c.pos.copy_(torch.where(c.alive, c.pos + 1, c.pos))
-    c.tokens.copy_(nxt)
+    c.eos_dead |= alive & (nxt == eos)
+    alive &= (nxt != eos) & (c.step + 1 < x["budget"])
+    pos.copy_(torch.where(alive, pos + 1, pos))
+    tokens.copy_(nxt)
     c.step += 1
     return logits
 
@@ -453,19 +468,20 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
     starts from. ``state``: the model's :class:`LaneState` (lane ``i`` is
     row ``i``), None for the dense model."""
     b, maxb = block_tables.shape
-    c = _Carry(b, maxb, horizon, tokens.device)
+    x = _buffers(_tick_spec(b, maxb), device=tokens.device)
+    c = _Carry(b, horizon, tokens.device)
     if budget is None:
         budget = torch.full((b,), horizon, dtype=torch.int32)
-    c.start(positions, block_tables, live, budget, tokens=tokens,
-            dead_mask=dead_mask)
+    c.start(x, dead_mask, tokens=tokens, positions=positions,
+            tables=block_tables, budget=budget, live=live)
     samp = sampling_tensors(tokens.device, temperature, top_p, min_p)
     logits = None
     for _ in range(horizon):
-        logits = _step(model, pool, c, do_sample, eos, generator, samp,
+        logits = _step(model, pool, x, c, do_sample, eos, generator, samp,
                        state)
     if return_logits:
-        return c.out, c.tokens, c.eos_dead, logits
-    return c.out, c.tokens, c.eos_dead
+        return c.out, x["tokens"], c.eos_dead, logits
+    return c.out, x["tokens"], c.eos_dead
 
 
 # the kernels' wrappers that a captured decode step or prefill may call,
@@ -522,20 +538,74 @@ def _replay(graph, per_replay):
         setattr(fn, name, getattr(fn, name) + k)
 
 
-class HorizonGraph:
-    """The engine's decode tick: :func:`decode_horizon`'s step over static
-    buffers (a :class:`_Carry`) for ``batch`` lanes, ``max_blocks`` table
-    entries and ``horizon`` steps, bound to one ``pool`` (updated in place,
-    never reallocated, so the graph may hold its pointers).
+class _Staged:
+    """A device call fed from host staging and read back into it: ``sets``
+    sets of host buffers (pinned on the card), each with the call's inputs
+    as ``spec`` gives them (name -> (value of a dead row, dtype, shape), in
+    the call's order) and room for the device tensors ``outs`` and, with
+    experts, ``LaneState.moe``'s row of ``phase`` ("decode" or "prefill");
+    ``inputs``, the static device buffers that ``fn`` reads. On a CUDA
+    device ``fn`` is captured at construction (:func:`_capture`, warmed up
+    on the dead inputs) and replayed, with no eager fallback; on the CPU it
+    runs eagerly. Neither copy waits for the device on the card, so a set
+    is written again only once the device has passed its copies: with one
+    set, the caller's blocking read of the call's results sees to that;
+    with more, the set's event, recorded after its copies back."""
 
-    On a CUDA device the step is captured once as a CUDA graph at
-    construction (:func:`_capture`, warmed up with every lane dead) and a
-    tick replays it ``n`` times: one launch of the graph a step, and no
-    host work between steps. There is no eager fallback on the card. On the
-    CPU there is no graph, and :meth:`run` calls the same step eagerly.
-    ``logits`` holds the last step's logits (the graph's output buffer on
-    the card). ``state``, the model's :class:`LaneState` (None for the
-    dense model), is bound like the pool: lane ``i`` is its lane ``i``."""
+    def __init__(self, spec, outs, state, phase, device, sets, fn,
+                 generator=None, mempool=None):
+        cuda = device.type == "cuda"
+        moe = _moe_counts(state, ("decode", "prefill").index(phase))
+        self.outs = outs if moe is None else dict(outs, moe=moe)
+        self.spec, self.phase, self.turn = spec, phase, sets - 1
+        self.inputs = _buffers(spec, device=device)
+        host = dict(spec, **{name: (0, t.dtype, tuple(t.shape))
+                             for name, t in self.outs.items()})
+        self.sets = [_buffers(host, pin_memory=cuda) for _ in range(sets)]
+        self.events = [torch.cuda.Event() if cuda and sets > 1 else None
+                       for _ in self.sets]
+        self.graph, self.per_replay = None, {}
+        if cuda:
+            self.graph, self.per_replay = _capture(fn, device, generator,
+                                                   mempool)
+
+    def stage(self, wait=None) -> dict:
+        """The next set's inputs as numpy views, every row dead, to write a
+        call into, once ``wait(event)`` has waited on the set's event."""
+        self.turn = (self.turn + 1) % len(self.sets)
+        if self.events[self.turn] is not None:
+            wait(self.events[self.turn])
+        x = {name: self.sets[self.turn][name].numpy() for name in self.spec}
+        for name, (fill, _, _) in self.spec.items():
+            x[name].fill(fill)
+        return x
+
+    def _copy(self, dst, src, names):
+        for name in names:
+            dst[name].copy_(src[name], non_blocking=self.graph is not None)
+
+    def counts(self, k: int = 0) -> dict:
+        """The engine's MoE counters as of set ``k``'s call, once its
+        copies have landed; empty without experts."""
+        if "moe" not in self.outs:
+            return {}
+        rows, visits = self.sets[k]["moe"].tolist()
+        return {f"moe_rows_{self.phase}": rows,
+                f"moe_expert_visits_{self.phase}": visits}
+
+
+class HorizonGraph(_Staged):
+    """The engine's decode tick: :func:`decode_horizon`'s step over static
+    inputs and a :class:`_Carry` for ``batch`` lanes, ``max_blocks`` table
+    entries and ``horizon`` steps, bound to one ``pool`` (updated in place,
+    never reallocated, so the graph may hold its pointers) and ``state``,
+    the model's :class:`LaneState` (lane ``i`` is its lane ``i``). On the
+    card a tick replays the captured step ``n`` times, with no host work
+    between steps. ``logits`` holds the last step's logits.
+
+    The engine's ticks go :meth:`stage`, :meth:`launch`, :meth:`read`,
+    over two staging sets: a chained tick fills one while the other's tick
+    is in flight. :meth:`start` and :meth:`run` take device tensors."""
 
     def __init__(self, model, pool, batch: int, max_blocks: int,
                  horizon: int, *, do_sample: bool = False, eos: int = -1,
@@ -545,27 +615,23 @@ class HorizonGraph:
         self.model, self.pool, self.state = model, pool, state
         self.do_sample, self.eos, self.generator = do_sample, eos, generator
         self.samp = samp if samp is not None else sampling_tensors(device)
-        self.c = _Carry(batch, max_blocks, horizon, device)
-        self.graph = None
-        self.per_replay = {}
+        self.c = _Carry(batch, horizon, device)
         self.logits = None
-        if device.type == "cuda":
-            self.graph, self.per_replay = _capture(self._step, device,
-                                                   generator)
+        super().__init__(_tick_spec(batch, max_blocks), {"out": self.c.out},
+                         state, "decode", device, 2, self._step, generator)
 
     @torch.no_grad()
     def _step(self):
-        self.logits = _step(self.model, self.pool, self.c, self.do_sample,
-                            self.eos, self.generator, self.samp, self.state)
+        self.logits = _step(self.model, self.pool, self.inputs, self.c,
+                            self.do_sample, self.eos, self.generator,
+                            self.samp, self.state)
 
-    def start(self, positions, tables, live, budget, tokens=None,
-              non_blocking: bool = False):
-        """Load a tick (:meth:`_Carry.start`). ``tokens=None`` chains the
-        tick from the last one's carry: its final tokens, and its
-        ``eos_dead`` as the dead mask."""
-        self.c.start(positions, tables, live, budget, tokens=tokens,
-                     dead_mask=None if tokens is not None else self.c.eos_dead,
-                     non_blocking=non_blocking)
+    def start(self, positions, tables, live, budget, tokens=None):
+        """Load a tick (:meth:`_Carry.start`); ``tokens=None`` chains it
+        from the last one's carry, its ``eos_dead`` the dead mask."""
+        self.c.start(self.inputs, None if tokens is not None else
+                     self.c.eos_dead, tokens=tokens, positions=positions,
+                     tables=tables, budget=budget, live=live)
 
     def run(self, n: int):
         """``n`` steps; returns ``(generated, final_tokens, eos_dead)``,
@@ -575,28 +641,39 @@ class HorizonGraph:
                 self._step()
             else:
                 _replay(self.graph, self.per_replay)
-        return self.c.out, self.c.tokens, self.c.eos_dead
+        return self.c.out, self.inputs["tokens"], self.c.eos_dead
+
+    def launch(self, n: int, chain: bool) -> int:
+        """The staged tick copied up (``chain``: all but its tokens, and
+        from the last tick's carry), ``n`` steps, and its tokens and counts
+        copied back behind its set's event; returns the set's index."""
+        st = self.sets[self.turn]
+        self._copy(self.inputs, st, [k for k in self.spec
+                                     if not (chain and k == "tokens")])
+        self.c.start(self.inputs, self.c.eos_dead if chain else None)
+        self.run(n)
+        self._copy(st, self.outs, self.outs)
+        if self.events[self.turn] is not None:
+            self.events[self.turn].record()
+        return self.turn
+
+    def read(self, k: int, wait):
+        """Set ``k``'s tokens ``[B, horizon]`` (a copy) and
+        :meth:`counts`, once ``wait(event)`` has waited on its event."""
+        if self.events[k] is not None:
+            wait(self.events[k])
+        return self.sets[k]["out"].numpy().copy(), self.counts(k)
 
 
-class PrefillGraph:
+class PrefillGraph(_Staged):
     """The engine's prefill call for one shape: :func:`prefill` over static
     inputs of ``group`` rows, ``bucket`` tokens and ``max_blocks`` table
-    entries, bound to one ``pool`` (written in place, never reallocated).
-
-    ``stage`` holds the inputs on the host (pinned on the card), in
-    :func:`prefill`'s order and dtypes, each filled as a dead row is
-    (:data:`DEAD`); a caller writes a call into it, and :meth:`start`
-    copies it up to the static inputs without waiting for the device.
-    On a CUDA device the forward and the last real token's ``lm_logits``
-    are captured once at construction (:func:`_capture`, warmed up with
-    every row dead, into ``mempool`` where given: graphs that share one
-    must have each call's logits read before the next replay), and
-    :meth:`run` replays them: the same kernels (K1, K8/K9 on a quantized
-    model) and the same ``write_kv``/``gather_kv`` as the eager call. There
-    is no eager fallback on the card. On the CPU there is no graph, and
-    :meth:`run` calls :func:`prefill` on the static inputs. With ``state``
-    (the model's :class:`LaneState`, bound like the pool) the inputs gain
-    ``lanes`` ``[group]``, each row's lane; :attr:`dead` lists them all."""
+    entries (and with ``state``, the model's :class:`LaneState`, each row's
+    ``lanes``), bound to one ``pool`` (written in place, never
+    reallocated), fed from one staging set. On the card the forward and
+    the last real token's ``lm_logits`` are captured into ``mempool`` where
+    given (graphs that share one must have each call's logits read before
+    the next replay): the same kernels as the eager call."""
 
     # name -> (value of a dead row, dtype); rows: [group, bucket] for the
     # first four, [group, max_blocks] for the tables, [group] for the rest
@@ -607,45 +684,35 @@ class PrefillGraph:
 
     def __init__(self, model, pool, group: int, bucket: int,
                  max_blocks: int, *, mempool=None, state=None):
-        device = pool_parts(pool)[0].device
-        cuda = device.type == "cuda"
         self.model, self.pool, self.state = model, pool, state
-        self.dead = self.DEAD if state is None else dict(
+        self.logits = None
+        dead = self.DEAD if state is None else dict(
             self.DEAD, lanes=(-1, torch.int64))
         shapes = {"tables": (group, max_blocks), "ctx_len": (group,),
                   "true_len": (group,), "lanes": (group,)}
-        self.stage, self.inputs = {}, {}
-        for name, (fill, dtype) in self.dead.items():
-            shape = shapes.get(name, (group, bucket))
-            self.stage[name] = torch.full(shape, fill, dtype=dtype,
-                                          pin_memory=cuda)
-            self.inputs[name] = torch.full(shape, fill, dtype=dtype,
-                                           device=device)
-        self.graph = None
-        self.per_replay = {}
-        self.logits = None
-        if cuda:
-            self.graph, self.per_replay = _capture(self._forward, device,
-                                                   pool=mempool)
+        spec = {name: (fill, dtype, shapes.get(name, (group, bucket)))
+                for name, (fill, dtype) in dead.items()}
+        super().__init__(spec, {}, state, "prefill",
+                         pool_parts(pool)[0].device, 1, self._forward,
+                         mempool=mempool)
 
     def _forward(self):
         self.logits = prefill(self.model, self.pool, *self.inputs.values(),
                               state=self.state)
 
     def start(self):
-        """Copy ``stage`` up to the static inputs: on the card without
-        waiting, so ``stage`` may be written again only once the device has
-        passed this copy (the caller's read-back of the logits does)."""
-        cuda = self.graph is not None
-        for name, x in self.inputs.items():
-            x.copy_(self.stage[name], non_blocking=cuda)
+        """Copy the staging set up, on the card without waiting: the
+        caller's read of the logits frees the set."""
+        self._copy(self.inputs, self.sets[0], self.spec)
 
     def run(self) -> torch.Tensor:
-        """The call's last-real-token logits ``[group, V]``; on the card
-        the graph's output buffer, which the next replay overwrites."""
+        """The call's last-real-token logits ``[group, V]`` (on the card
+        the graph's output buffer, which the next replay overwrites), its
+        :meth:`counts` copied back behind them."""
         if self.graph is None:
             self._forward()
         else:
             with span("paged_model.prefill"):
                 _replay(self.graph, self.per_replay)
+        self._copy(self.sets[0], self.outs, self.outs)
         return self.logits
