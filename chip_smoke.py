@@ -97,7 +97,12 @@ and exits non-zero):
     the plain version's, the library's grouped product's and its bound
     (``phase_k11``); then the model at its published widths through the
     engine with both captured graphs, the MoE counters exact
-    (``phase_lfm2_serving``).
+    (``phase_lfm2_serving``);
+20. K12 (RMSNorm with the residual add folded in) against its plain
+    version at the norm sites of the three served configurations' decode
+    steps and prefill calls (``K12_CASES``), with its time, the plain
+    chain's, the library's (``torch.nn.functional.rms_norm`` after the
+    add) and its bound (``phase_k12``).
 
 Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15, 17, 19) zeroes its
 kernels' launch counts just before it and reads the counts just after; a
@@ -105,7 +110,8 @@ replay of the captured decode step adds what its capture counted. The line
 before the last holds the kernels' JSON record, with the decode ticks'
 figures, phase 5's tokens/s pipelined and synchronous, K1's generation
 cases, phase 17's figures (``generation``) and phase 19's
-(``serving_lfm2``; K11's record holds its decode case and ``prefill``);
+(``serving_lfm2``; K11's record holds its decode case and ``prefill``)
+and phase 20's (K12's record, a case a norm site);
 the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
@@ -2381,6 +2387,115 @@ def phase_generation_numerics(torch, np, tt, fa, attn, tol=2e-3,
     return launches
 
 
+# K12's cases: (configuration, call, norm site, rows, width, residual add)
+# at the served shapes: decode steps of 64 lanes (128 for LFM2), prefill
+# calls of 4 x 512 slots; per-head q and k rows are tokens x heads
+K12_CASES = (
+    ("qwen3-0.6b", "decode", "hidden", 64, 1024, True),
+    ("qwen3-0.6b", "decode", "q", 64 * 16, 128, False),
+    ("qwen3-0.6b", "decode", "k", 64 * 8, 128, False),
+    ("qwen3-0.6b", "prefill", "hidden", 2048, 1024, True),
+    ("qwen3-0.6b", "prefill", "q", 2048 * 16, 128, False),
+    ("qwen3-0.6b", "prefill", "k", 2048 * 8, 128, False),
+    ("mistral-7b-v0.3-int8", "decode", "hidden", 64, 4096, True),
+    ("mistral-7b-v0.3-int8", "prefill", "hidden", 2048, 4096, True),
+    ("lfm2-8b-a1b", "decode", "hidden", 128, 2048, True),
+    ("lfm2-8b-a1b", "decode", "q", 128 * 32, 64, False),
+    ("lfm2-8b-a1b", "decode", "k", 128 * 8, 64, False),
+    ("lfm2-8b-a1b", "prefill", "hidden", 2048, 2048, True),
+    ("lfm2-8b-a1b", "prefill", "q", 2048 * 32, 64, False),
+    ("lfm2-8b-a1b", "prefill", "k", 2048 * 8, 64, False),
+)
+# norm sites a decode step or prefill call, for phase 20's extrapolated
+# step: 2 a layer, 2 more a layer with per-head QK-norm, and the final norm
+K12_SITES = {"qwen3-0.6b": {"hidden": 2 * 28 + 1, "q": 28, "k": 28},
+             "mistral-7b-v0.3-int8": {"hidden": 2 * 32 + 1},
+             "lfm2-8b-a1b": {"hidden": 2 * 24 + 1, "q": 6, "k": 6}}
+
+
+def phase_k12(torch, flush, card):
+    """K12 at every ``K12_CASES`` shape, bf16: against its plain version
+    (``core.nn.rms_norm`` after the add) within one bf16 ulp, at least 99 %
+    of the outputs identical and the residual sum exact, five calls
+    bit-identical; then its time beside the plain chain's (about nine
+    kernels), the library's (the add, then ``F.rms_norm``) and its bound
+    (each operand read once, each output written once). Returns the cases'
+    records. A phase line a configuration and call extrapolates a step's
+    norm time from them (``K12_SITES`` x each site's time alone); the
+    kernels line takes K12's launches from the served runs instead."""
+    import torch.nn.functional as F
+    from vyomai_tpu_torch.core import nn as cnn
+    from vyomai_tpu_torch.ops.rms_norm import rms_norm
+    dev, eps, bf16 = torch.device("cuda"), 1e-6, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(12)
+    recs, steps = [], {}
+    for conf, call, site, rows, d, res in K12_CASES:
+        x, h = (torch.randn(rows, d, generator=g, device=dev).to(bf16)
+                for _ in range(2))
+        w = (1.0 + 0.1 * torch.randn(d, generator=g, device=dev)).to(bf16)
+        if res:
+            def kernel():
+                return rms_norm(w, x, eps, residual=h)
+
+            def plain():
+                s = h + x
+                return s, cnn.rms_norm(w, s, eps=eps)
+
+            def library():
+                s = h + x
+                return s, F.rms_norm(s, (d,), w, eps)
+        else:
+            def kernel():
+                return None, rms_norm(w, x, eps)
+
+            def plain():
+                return None, cnn.rms_norm(w, x, eps=eps)
+
+            def library():
+                return None, F.rms_norm(x, (d,), w, eps)
+        s, got = kernel()
+        s_want, want = plain()
+        check(s is None or torch.equal(s, s_want),
+              f"K12 {conf} {call} {site}: the residual sum differs")
+        _, e = torch.frexp(torch.maximum(got.float().abs(),
+                                         want.float().abs()))
+        err = (got.float() - want.float()).abs()
+        same = float((got == want).float().mean())
+        check(bool((err <= torch.ldexp(torch.ones_like(err), e - 8)).all())
+              and same >= 0.99, f"K12 {conf} {call} {site}: over one ulp "
+              f"or {same:.4f} identical")
+        check(all(torch.equal(kernel()[1], got) for _ in range(5)),
+              f"K12 {conf} {call} {site}: calls differ")
+        moved = nbytes(x, w, got) + (nbytes(h, s) if res else 0)
+        rec = bound(0.0, moved, bf16)
+        rec.update(config=conf, call=call, site=site, rows=rows, width=d,
+                   residual=res, identical=same, ms=cuda_ms(kernel, flush),
+                   plain_ms=cuda_ms(plain, flush),
+                   library_ms=cuda_ms(library, flush))
+        phase(f"K12 {conf} {call} {site} [{rows}, {d}]"
+              f"{' + residual' if res else ''}: {same:.4f} identical; "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"library {rec['library_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms [{card}]")
+        recs.append(rec)
+        n = K12_SITES[conf][site]
+        step = steps.setdefault(f"{conf}.{call}", {
+            "sites": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0})
+        step["sites"] += n
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            step[k] += n * rec[k]
+        del x, h, w, s, got, want, s_want, err
+    for name, step in steps.items():
+        phase(f"K12 a {name}, extrapolated, not measured: {step['sites']} "
+              f"sites x each site's time alone (L2 flushed): "
+              f"{step['ms']:.4f} ms (plain {step['plain_ms']:.4f}, library "
+              f"{step['library_ms']:.4f}, bound {step['bound_ms']:.4f}) "
+              f"[{card}]")
+    torch.cuda.empty_cache()
+    return {"cases": recs}
+
+
 def main():
     check((ROOT / "vyomai_tpu_torch" / "csrc").is_dir(),
           "run from a checkout: vyomai_tpu_torch/ not found beside this "
@@ -2389,7 +2504,7 @@ def main():
     import numpy as np
     import torch
 
-    phase("1/19 device and set-up")
+    phase("1/20 device and set-up")
     check(torch.cuda.is_available(), "no CUDA device: this script runs the "
           "port on an NVIDIA card and does not fall back to the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2421,6 +2536,7 @@ def main():
     from vyomai_tpu_torch.serving import paged_model as pm
     from vyomai_tpu_torch.layers import moe
     from vyomai_tpu_torch.ops import grouped_matmul as gm
+    from vyomai_tpu_torch.ops.rms_norm import rms_norm
     t0 = time.perf_counter()
     _build.library()
     phase(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s "
@@ -2443,47 +2559,47 @@ def main():
           f"K4's kernels are not the split-KV pair: {sorted(k4_res)}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    phase("2/19 K4 paged decode vs plain")
+    phase("2/20 K4 paged decode vs plain")
     k4 = phase_decode(torch, pdm, flush, card)
-    phase("3/19 K1 flash forward vs plain")
+    phase("3/20 K1 flash forward vs plain")
     k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
                      flush, card)
     k1_gen = phase_flash_generation(torch, fa, masks, attn, flush, card)
-    phase("4/19 K2/K3 flash backward vs plain")
+    phase("4/20 K2/K3 flash backward vs plain")
     k23 = phase_flash_bwd(torch, fa, flush, card)
     del flush
-    phase("5/19 end-to-end serving")
+    phase("5/20 end-to-end serving")
     served = phase_serving(torch, np, tt, pm,
-                           (paged_decode, flash_attention_fwd), card,
-                           sync_rerun=True)
-    phase("6/19 serving numerics")
+                           (paged_decode, flash_attention_fwd, rms_norm),
+                           card, sync_rerun=True)
+    phase("6/20 serving numerics")
     phase_numerics(torch, np, tt, pm, kernels=(paged_decode,
                                                 flash_attention_fwd))
     phase_graph_numerics(torch, np, tt, pm)
-    phase("7/19 end-to-end training")
+    phase("7/20 end-to-end training")
     trained = phase_training(torch, bench, bench.KERNELS, card)
-    phase("8/19 training numerics")
+    phase("8/20 training numerics")
     phase_train_numerics(torch, np, tt, bench)
-    phase("9/19 K5/K6/K7 short attention vs plain")
+    phase("9/20 K5/K6/K7 short attention vs plain")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     k567 = phase_short(torch, sa, fa, flush, card)
     del flush
-    phase("10/19 end-to-end ViT-base")
+    phase("10/20 end-to-end ViT-base")
     vit = phase_vit(torch, eb, eb.KERNELS, card)
-    phase("11/19 end-to-end RoBERTa-base MLM")
+    phase("11/20 end-to-end RoBERTa-base MLM")
     mlm = phase_mlm(torch, eb, eb.KERNELS, card)
-    phase("12/19 encoder numerics")
+    phase("12/20 encoder numerics")
     phase_encoder_numerics(torch, np, eb, eb.KERNELS)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    phase("13/19 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
+    phase("13/20 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
     qmm, k10_path = phase_quant_matmul(torch, qm, qb, flush, card)
-    phase("14/19 K4 int8/int4 pools vs plain")
+    phase("14/20 K4 int8/int4 pools vs plain")
     k4q = phase_quant_decode(torch, pdm, pa, flush, card)
     del flush
-    phase("15/19 end-to-end quantized serving")
+    phase("15/20 end-to-end quantized serving")
     q8 = phase_serving(
         torch, np, tt, pm, (flash_attention_fwd, pdm.paged_decode_int8,
-                            qm.int8_matmul), card,
+                            qm.int8_matmul, rms_norm), card,
         label="int8 weights + int8 pool", quant=dict(bits=8),
         pool_dtype=torch.int8, reference=served["outs"])
     q4 = phase_serving(
@@ -2498,7 +2614,7 @@ def main():
         if bf_ms and ms:
             phase(f"graph tick device ms per step {label} {ms:.4f} vs bf16 "
                   f"{bf_ms:.4f} (ratio {ms / bf_ms:.4f}) [{card}]")
-    phase("16/19 quantized numerics")
+    phase("16/20 quantized numerics")
     n8 = phase_numerics(torch, np, tt, pm, "fp32 int8 weights + int8 pool",
                         quant=dict(bits=8), pool_dtype=torch.int8,
                         kernels=(qm.int8_matmul, pdm.paged_decode_int8))
@@ -2519,19 +2635,24 @@ def main():
                    quant=dict(bits=8, act_bits=8), tol=0.1,
                    kernels=(qm.int8_matmul, paged_decode))
     phase_w8a8_linears(torch, np, tt, qm, pm)
-    phase("17/19 end-to-end static-cache generation")
+    phase("17/20 end-to-end static-cache generation")
     gen = phase_generation(torch, np, tt, fa, qm, card)
-    phase("18/19 generation numerics")
+    phase("18/20 generation numerics")
     phase_generation_numerics(torch, np, tt, fa, attn)
     gen_k1 = sum(r["launches"]["flash_attention_fwd"] for r in gen.values()
                  ) + gen["bf16"]["generate_launches"]["flash_attention_fwd"]
-    phase("19/19 LFM2-8B-A1B: K11 vs plain, and end-to-end serving")
+    phase("19/20 LFM2-8B-A1B: K11 vs plain, and end-to-end serving")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     k11 = phase_k11(torch, gm, moe, flush, card)
     del flush
     lfm2 = phase_lfm2_serving(torch, np, tt, (paged_decode,
                                               flash_attention_fwd,
-                                              gm.grouped_swiglu), card)
+                                              gm.grouped_swiglu, rms_norm),
+                              card)
+    phase("20/20 K12 RMSNorm vs plain at the served norm sites")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    k12 = phase_k12(torch, flush, card)
+    del flush
 
     record = {"kernels": [
         {"name": "paged_decode[split+combine]", "route": "cuda",
@@ -2609,6 +2730,11 @@ def main():
          "replaces": "vyomai_tpu/layers/moe.py:60",
          "launches": lfm2["launches"]["grouped_swiglu"], **k11["decode"],
          "prefill": k11["prefill"]},
+        {"name": "rms_norm", "route": "cuda", "kernels": ["rms_norm_kernel"],
+         "source": "vyomai_tpu_torch/csrc/rms_norm.cu",
+         "replaces": "none (XLA fuses the JAX package's norms)",
+         "launches": sum(run["launches"]["rms_norm"]
+                         for run in (served, q8, lfm2)), **k12},
     ]}
     # the decode tick per step, eager against graph, and phase 5's
     # throughput pipelined against synchronous

@@ -276,7 +276,8 @@ def test_k6_packed_tensor_core_arithmetic(jx, h, l, d):
 
 # -- launcher signatures --------------------------------------------------------
 
-_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
 
 
 def _declared(name: str):

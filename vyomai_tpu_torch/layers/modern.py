@@ -97,18 +97,20 @@ class ModernLayer(nn.Module):
 
 # -- apply ----------------------------------------------------------------------
 
-def qkv_heads(attn: Attention, cfg, normed: torch.Tensor, lead):
+def qkv_heads(attn: Attention, cfg, normed: torch.Tensor, lead,
+              norm=cnn.rms_norm):
     """q ``[*lead, H, D]``, k and v ``[*lead, H_kv, D]`` of ``normed [*lead,
     h]``, q and k through their per-head RMSNorm when the block has one
-    (float or quantized projections)."""
+    (float or quantized projections), applied by ``norm`` (``core.nn``'s;
+    the paged serving steps pass K12, ``ops.rms_norm``)."""
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
     q = cnn.apply_linear(attn.q_proj, normed).reshape(*lead, nh, hd)
     k = cnn.apply_linear(attn.k_proj, normed).reshape(*lead, nkv, hd)
     v = cnn.apply_linear(attn.v_proj, normed).reshape(*lead, nkv, hd)
     if attn.q_norm is not None:
-        q = cnn.rms_norm(attn.q_norm.weight, q, eps=cfg.rms_norm_eps)
-        k = cnn.rms_norm(attn.k_norm.weight, k, eps=cfg.rms_norm_eps)
+        q = norm(attn.q_norm.weight, q, eps=cfg.rms_norm_eps)
+        k = norm(attn.k_norm.weight, k, eps=cfg.rms_norm_eps)
     return q, k, v
 
 

@@ -56,6 +56,8 @@ _SIGNATURES = {
     # H, L, D, q/k/v/dq/dk/dv strides, dout strides, is_bf16, stream
     "short_bwd_launch": [_P] * 4 + [_LL] + [_P] * 6 + [_I] * 4 + [_LL] * 6
     + [_I, _P],
+    # x, residual, weight, sum, out, rows, D, eps, is_bf16, stream
+    "rms_norm_launch": [_P] * 5 + [_I] * 2 + [ctypes.c_float, _I, _P],
 }
 
 _LIB = None

@@ -207,6 +207,7 @@ class ContinuousBatchEngine:
             "tick_host_ns": 0,
             "moe_rows_decode": 0, "moe_rows_prefill": 0,
             "moe_expert_visits_decode": 0, "moe_expert_visits_prefill": 0,
+            "norm_sites": 0, "norm_sites_fused": 0,
         }
         """Running integer counts, read as differences between two copies
         (``dict(engine.counters)``); times are ``time.perf_counter_ns``
@@ -258,6 +259,11 @@ class ContinuousBatchEngine:
           tokens and a prefill call's, so they stand as of the last tick
           harvested and the last prefill read; 0 for a model without
           experts.
+        - ``norm_sites``, ``norm_sites_fused``: RMSNorm sites that decode
+          steps and prefill calls ran, and of those the ones K12 ran (every
+          one on the card, none on the CPU), added as each tick or prefill
+          call is launched: a replay adds what its graph's capture counted
+          (``fused_norm_share.tok_s``).
         """
         # submit -> first token, without keeping one number per request
         self._first_token_ns = 0
@@ -427,7 +433,9 @@ class ContinuousBatchEngine:
             with span("engine.prefill.inputs"):
                 graph, suffixes = self._prefill_inputs(states)
                 graph.start()
+            norms = paged_model.norm_counts()
             logits = graph.run()
+            self._count_norms(norms)
             t_dispatched = clock()
             with span("engine.prefill.read"):
                 # the next replay overwrites the logits: read them first
@@ -628,8 +636,17 @@ class ContinuousBatchEngine:
                 x["budget"][i] = h
                 x["tables"][i, :len(state.block_table)] = state.block_table
             n = min(self.decode_horizon, max(g[3] for g in grants))
+            norms = paged_model.norm_counts()
             tick = graph.launch(n, chain)
+            self._count_norms(norms)
         return {"tick": tick, "live": [(i, s, h) for i, s, _, h in grants]}
+
+    def _count_norms(self, before):
+        """Add the norm sites run since ``before`` (``paged_model.
+        norm_counts()``) to the counters."""
+        sites, fused = paged_model.norm_counts()
+        self.counters["norm_sites"] += sites - before[0]
+        self.counters["norm_sites_fused"] += fused - before[1]
 
     def horizon_graph(self):
         """The decode tick (``paged_model.HorizonGraph``, with its staging),

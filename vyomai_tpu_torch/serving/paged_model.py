@@ -22,7 +22,11 @@ K/V, including the suffix it has just written, so the quantized path sees
 its own quantization as JAX's does.
 
 Linears, the token table and the tied head go through ``core.nn``'s module
-dispatch, so a model from ``quant.quantize_model`` runs unchanged.
+dispatch, so a model from ``quant.quantize_model`` runs unchanged. Every
+norm site of both steps (input, post-attention, per-head q and k, final)
+is one call of K12, ``ops.rms_norm``, with the residual add in front of it
+folded in: the steps carry each block's output (``delta``) to the next
+norm instead of adding it themselves.
 
 The steps walk the model's layers by kind. A model with ``layer_types``
 (``models.lfm2.Lfm2MoeForCausalLM``) keeps KV for its ``full_attention``
@@ -42,8 +46,8 @@ from ..core import nn as cnn
 from ..core.device import resolve_device
 from ..core.masks import NEG_INF
 from ..generation.sampling import _min_p_mask, _top_p_mask
-from ..layers.modern import (lm_logits, mlp_residual, qkv_heads, rope_tables,
-                             rotate)
+from ..layers.modern import (lm_logits, qkv_heads, rope_tables, rotate,
+                             swiglu_apply)
 from ..layers.moe import MoE, moe_apply
 from ..layers.short_conv import conv_sequence, conv_step
 from ..ops.flash_attention import flash_attention_fwd
@@ -52,6 +56,7 @@ from ..ops.paged_attention import gather_kv, write_kv
 from ..ops.paged_decode import (paged_decode, paged_decode_int4,
                                 paged_decode_int8)
 from ..ops.quant_matmul import int4_matmul, int8_matmul
+from ..ops.rms_norm import rms_norm
 from .spans import span
 
 
@@ -161,17 +166,24 @@ def _layer_tables(tables: torch.Tensor, layer: int, nb: int) -> torch.Tensor:
     return torch.where(tables >= 0, tables + layer * nb, tables)
 
 
-def _ffn_residual(layer, cfg, h: torch.Tensor, valid, counts
-                  ) -> torch.Tensor:
-    """``h + ffn(post_attention_layernorm(h))``: the dense MLP, or the
-    experts over the ``valid`` tokens (``counts``: their device counters or
-    None)."""
+def _norm(norm, cfg, hidden: torch.Tensor, delta):
+    """``(hidden + delta, its norm by the RMSNorm module norm)`` in one K12
+    launch on the card: a norm site with the residual add in front of it;
+    ``delta`` None: ``(hidden, its norm)``."""
+    if delta is None:
+        return hidden, rms_norm(norm.weight, hidden, eps=cfg.rms_norm_eps)
+    return rms_norm(norm.weight, delta, eps=cfg.rms_norm_eps,
+                    residual=hidden)
+
+
+def _ffn(layer, normed: torch.Tensor, valid, counts) -> torch.Tensor:
+    """The layer's FFN of its normed input: the dense MLP, or the experts
+    over the ``valid`` tokens (``counts``: their device counters or
+    None). The caller adds it to the residual stream."""
     if not isinstance(layer.mlp, MoE):
-        return mlp_residual(layer, cfg, h)
+        return swiglu_apply(layer.mlp, normed)
     with span("paged_model.moe"):
-        normed = cnn.rms_norm(layer.post_attention_layernorm.weight, h,
-                              eps=cfg.rms_norm_eps)
-        return h + moe_apply(layer.mlp, normed, valid, counts)
+        return moe_apply(layer.mlp, normed, valid, counts)
 
 
 def _moe_counts(state, phase: int):
@@ -233,17 +245,18 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
     flat_blocks = slot_blocks.reshape(-1)
     flat_offsets = slot_offsets.reshape(-1)
 
+    delta = None            # what the last block adds to the residual
     for layer_i, layer in enumerate(model.layers):
         with span("paged_model.prefill.layer"):
-            normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
-                                  eps=cfg.rms_norm_eps)
+            hidden, normed = _norm(layer.input_layernorm, cfg, hidden, delta)
             if layer_i not in kv_of:
                 st = state.conv[state.conv_index[layer_i]]
-                hidden = hidden + _conv_prefill(layer.conv, normed, st,
-                                                lanes, cont, true_len)
+                delta = _conv_prefill(layer.conv, normed, st, lanes, cont,
+                                      true_len)
             else:
                 pl = kv_of[layer_i]
-                q, k, v = qkv_heads(layer.self_attn, cfg, normed, (n, t_pad))
+                q, k, v = qkv_heads(layer.self_attn, cfg, normed, (n, t_pad),
+                                    norm=rms_norm)
                 q, k = rotate(q, cos, sin), rotate(k, cos, sin)
                 write_kv(flat_pool, k.reshape(n * t_pad, nkv, -1),
                          v.reshape(n * t_pad, nkv, -1),
@@ -263,10 +276,11 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
                     vv.to(acc).contiguous(), bias)
                 attn = attn.to(qh.dtype).transpose(1, 2).reshape(
                     n, t_pad, -1)
-                hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj,
-                                                   attn)
-            hidden = _ffn_residual(layer, cfg, hidden, valid, counts)
-    return cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
+                delta = cnn.apply_linear(layer.self_attn.o_proj, attn)
+            hidden, normed = _norm(layer.post_attention_layernorm, cfg,
+                                   hidden, delta)
+            delta = _ffn(layer, normed, valid, counts)
+    return _norm(model.norm, cfg, hidden, delta)[1]
 
 
 @torch.no_grad()
@@ -307,26 +321,28 @@ def decode(model, pool, tokens, positions, block_tables, seq_lens,
     counts = _moe_counts(state, 0)
     hidden = cnn.apply_embedding(model.embed_tokens, tokens)     # [B, Dm]
     cos, sin = rope_tables(model, positions, hidden.dtype)       # [B,1,D]
+    delta = None            # what the last block adds to the residual
     for layer_i, layer in enumerate(model.layers):
-        normed = cnn.rms_norm(layer.input_layernorm.weight, hidden,
-                              eps=cfg.rms_norm_eps)
+        hidden, normed = _norm(layer.input_layernorm, cfg, hidden, delta)
         if layer_i not in kv_of:
             st = state.conv[state.conv_index[layer_i]]
-            hidden = hidden + _conv_decode(layer.conv, normed, st, alive)
+            delta = _conv_decode(layer.conv, normed, st, alive)
         else:
             pl = kv_of[layer_i]
-            q, k, v = qkv_heads(layer.self_attn, cfg, normed, (b,))
+            q, k, v = qkv_heads(layer.self_attn, cfg, normed, (b,),
+                                norm=rms_norm)
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
             write_kv(flat_pool, k, v, _layer_tables(slot_blocks, pl, nb),
                      slot_offsets, scales=flat_sc)
             attn = paged_decode(q.contiguous(), flat_pool,
                                 _layer_tables(block_tables, pl, nb),
                                 seq_lens, nkv, scales=flat_sc)   # [B, H, D]
-            hidden = hidden + cnn.apply_linear(layer.self_attn.o_proj,
-                                               attn.reshape(b, -1))
-        hidden = _ffn_residual(layer, cfg, hidden, alive, counts)
-    hidden = cnn.rms_norm(model.norm.weight, hidden, eps=cfg.rms_norm_eps)
-    return lm_logits(model, hidden)
+            delta = cnn.apply_linear(layer.self_attn.o_proj,
+                                     attn.reshape(b, -1))
+        hidden, normed = _norm(layer.post_attention_layernorm, cfg, hidden,
+                               delta)
+        delta = _ffn(layer, normed, alive, counts)
+    return lm_logits(model, _norm(model.norm, cfg, hidden, delta)[1])
 
 
 def sampling_tensors(device, temperature=1.0, top_p=1.0, min_p=0.0):
@@ -487,12 +503,20 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
 # the kernels' wrappers that a captured decode step or prefill may call,
 # and their counters
 _COUNTED = (paged_decode, paged_decode_int8, paged_decode_int4, int8_matmul,
-            int4_matmul, flash_attention_fwd, grouped_swiglu)
+            int4_matmul, flash_attention_fwd, grouped_swiglu, rms_norm)
 
 
 def _launch_counts() -> dict:
     return {(fn, name): getattr(fn, name) for fn in _COUNTED
-            for name in ("launches", "tc_launches") if hasattr(fn, name)}
+            for name in ("launches", "tc_launches", "sites")
+            if hasattr(fn, name)}
+
+
+def norm_counts() -> tuple:
+    """``(norm sites run, those K12 ran)`` so far in this process: the
+    steps' calls of ``ops.rms_norm``, eager, or added per replay of a
+    captured graph as its capture counted them."""
+    return rms_norm.sites, rms_norm.launches
 
 
 def _capture(fn, device, generator=None, pool=None):
@@ -508,9 +532,10 @@ def _capture(fn, device, generator=None, pool=None):
     replay draws fresh numbers from it, and restored after the warm-up. A
     failed capture raises.
 
-    The kernels' wrappers count launches in Python, which a replay never
-    calls: the counts the capture added are taken back, and ``per_replay``
-    holds what :func:`_replay` adds once per replay instead."""
+    The kernels' wrappers count launches (K12 also its norm sites) in
+    Python, which a replay never calls: the counts the capture added are
+    taken back, and ``per_replay`` holds what :func:`_replay` adds once per
+    replay instead."""
     gen_state = None if generator is None else generator.get_state()
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
