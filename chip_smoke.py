@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, decoder-training, encoder-family,
-quantized-serving, static-cache generation and mixture-of-experts serving
-paths once on one NVIDIA card.
+quantized-serving, static-cache generation, mixture-of-experts and
+latent-attention serving paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -103,15 +103,25 @@ and exits non-zero):
     steps and prefill calls (``K12_CASES``), with its time, the plain
     chain's, the library's (``torch.nn.functional.rms_norm`` after the
     add) and its bound (``phase_k12``).
+21. Moonlight-16B-A3B: K13 (MLA over the latent pool) against its plain
+    version at a served decode step (128 lanes over cached documents)
+    and prefill calls (4 rows x 128, 512, 32 tokens over 5,900 cached
+    rows), within the kernels' rounding of the probabilities computed
+    from the same operands, with its time, the plain version's and its
+    bound (``phase_k13``); then the model at its published widths through
+    the engine with the radix cache and both captured graphs, the latent
+    row counters exact and the tick's time spent counting them
+    (``phase_moonlight_serving``).
 
-Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15, 17, 19) zeroes its
-kernels' launch counts just before it and reads the counts just after; a
+Each end-to-end path (5, 7, 10, 11, the K10 path of 13, 15, 17, 19, 21)
+zeroes its kernels' launch counts just before it and reads them after; a
 replay of the captured decode step adds what its capture counted. The line
 before the last holds the kernels' JSON record, with the decode ticks'
 figures, phase 5's tokens/s pipelined and synchronous, K1's generation
 cases, phase 17's figures (``generation``) and phase 19's
-(``serving_lfm2``; K11's record holds its decode case and ``prefill``)
-and phase 20's (K12's record, a case a norm site);
+(``serving_lfm2``; K11's record holds its decode case and ``prefill``),
+phase 20's (K12's record, a case a norm site) and phase 21's (K13's
+record holds its decode case and ``prefill``; ``serving_moonlight``);
 the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
@@ -1213,6 +1223,285 @@ def phase_lfm2_serving(torch, np, tt, kernels, card):
           f"decode {c['moe_rows_decode']} prefill {c['moe_rows_prefill']}, "
           f"{res['rows_per_visit_decode']:.2f} rows an expert visit in "
           f"decode; launches {launches} [{card}]")
+    del eng, model
+    torch.cuda.empty_cache()
+    return res
+
+
+# K13's kernels: the decode pair and the prefill kernel
+K13_KERNELS = ("k13_decode_split_kernel", "k13_decode_combine_kernel",
+               "k13_prefill_kernel")
+
+
+def k13_kernels(so: Path) -> dict:
+    """HMMA instructions, registers, shared memory and stack bytes of each
+    of K13's kernels in the built library (``cuobjdump -sass`` and
+    ``-res-usage``): {"k13_prefill_kernel": (hmma, regs, smem, stack),
+    ...}; the shared memory is the dynamic part's (ptxas reports 0)."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+
+    def dump(flag):
+        return subprocess.run([str(tool), flag, str(so)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+
+    pat = re.compile("(" + "|".join(K13_KERNELS) + ")")
+    found, name = {}, None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            m = pat.search(line)
+            name = m.group(1) if m else None
+            if name:
+                found[name] = [0, None, None, None]
+        elif name and "HMMA" in line:
+            found[name][0] += 1
+    name = None
+    for line in dump("-res-usage").splitlines():
+        if "Function" in line:
+            m = pat.search(line)
+            name = m.group(1) if m else None
+        elif name in found:
+            vals = [re.search(rf"{k}:(\d+)", line)
+                    for k in ("REG", "SHARED", "STACK")]
+            if all(vals):
+                found[name][1:] = [int(v.group(1)) for v in vals]
+                name = None
+    return {k: tuple(v) for k, v in sorted(found.items())}
+
+
+def k13_rounding(torch, k13, q, pool, tables, ok, scale):
+    """Where K13 may differ from its plain version, ``[B, M, C]`` for ``q
+    [B, M, W]`` against the rows of ``tables`` under ``ok [B, M, K]``: the
+    kernels round each probability to bf16 before the weighted sum (at
+    most 2^-8 of itself), which moves an output by at most 2^-8 of sum(p
+    |c_kv|) / sum(p), computed here in fp32 from the same operands; the
+    caller adds the output's own rounding and the order of the sums."""
+    rows = k13._rows(pool, tables, tables.shape[1] * pool.shape[1])
+    s = torch.einsum("bmw,bkw->bmk", q.float(), rows.float()) * scale
+    s = s.masked_fill(~ok, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True).clamp_min(-1e30))
+    del s
+    l = p.sum(-1, keepdim=True)
+    mag = torch.einsum("bmk,bkc->bmc", p, rows[..., :k13.RANK].float().abs())
+    return 2.0 ** -8 * mag / torch.where(l == 0, 1.0, l)
+
+
+def k13_case(torch, k13, name, kernel, plain, rounding, flops, moved,
+             flush, card):
+    """Run one K13 case: the kernel against its plain version within
+    ``rounding`` + 2^-8 of the output (its bf16 rounding) + 1e-4 (the order
+    of the fp32 sums) at every element, five calls bit-identical, then its
+    time beside the plain version's and its bound."""
+    got = kernel()
+    want = plain()
+    err = (got.float() - want.float()).abs()
+    tol = rounding + 2.0 ** -8 * want.float().abs() + 1e-4
+    check(bool((err <= tol).all()), f"K13 {name}: error {float(err.max())} "
+          f"over the bound at {int((err > tol).sum())} elements")
+    check(all(torch.equal(kernel(), got) for _ in range(5)),
+          f"K13 {name}: calls differ")
+    rec = bound(flops, moved, torch.bfloat16)
+    rec.update(max_err=float(err.max()), max_bound=float(tol.max()),
+               max_out=float(want.float().abs().max()),
+               ms=cuda_ms(kernel, flush),
+               plain_ms=cuda_ms(plain, flush, iters=5))
+    phase(f"K13 {name}: max error {rec['max_err']:.3e} within the bound "
+          f"(outputs to {rec['max_out']:.3f}); {rec['ms']:.4f} ms, "
+          f"{achieved(flops, rec['ms'], rec)}; plain {rec['plain_ms']:.4f} "
+          f"ms; bound {rec['bound_ms']:.4f} ms [{card}]")
+    return rec
+
+
+def phase_k13(torch, k13, flush, card):
+    """K13 at Moonlight-16B-A3B's widths (16 heads, 512 + 64 latent rows,
+    bf16; 16-row blocks, tables of 513), each kernel against its plain
+    version on the same card tensors (``k13_case``):
+
+    - a decode step of 128 lanes over 32 cached documents of 4,096-7,168
+      rows, four lanes a document (the blocks shared in their tables), and
+      each lane's own 64-400 rows after it; the bound counts every lane's
+      rows, as the kernel reads them (``distinct_bound_ms``: each shared
+      row once);
+    - prefill calls of 4 rows x 128, 512 and 32 tokens, each row over its
+      own 5,900 cached rows and its suffix, causal with the offset.
+
+    Returns ``{"decode": record, "prefill": [record a bucket]}``."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+    rng = torch.Generator().manual_seed(13)
+    heads, width, rank, bs, maxb = k13.HEADS, k13.WIDTH, k13.RANK, 16, 513
+    scale = 192 ** -0.5
+    lanes, docs = 128, 32
+    doc_len = torch.randint(4096, 7169, (docs,), generator=rng).tolist()
+    tails = torch.randint(64, 401, (lanes,), generator=rng).tolist()
+    nb, doc_blocks = 0, []
+    for n in doc_len:
+        doc_blocks.append(list(range(nb, nb + n // bs)))
+        nb += n // bs
+    tables = torch.full((lanes, maxb), -1, dtype=torch.int32)
+    lens = []
+    for i in range(lanes):
+        d = i % docs
+        own = -(-(doc_len[d] + tails[i]) // bs) - len(doc_blocks[d])
+        row = doc_blocks[d] + list(range(nb, nb + own))
+        nb += own
+        tables[i, :len(row)] = torch.tensor(row, dtype=torch.int32)
+        lens.append(doc_len[d] + tails[i])
+    pool = torch.randn(nb, bs, width, generator=g, device=dev).to(bf16)
+    tables = tables.to(dev)
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn(lanes, heads, width, generator=g, device=dev).to(bf16)
+    live = sum(lens)
+    distinct = sum(len(b) * bs for b in doc_blocks) + sum(
+        n - len(doc_blocks[i % docs]) * bs for i, n in enumerate(lens))
+    ok = (torch.arange(maxb * bs, device=dev)[None] < seq_lens[:, None].long()
+          )[:, None].expand(lanes, heads, -1)
+    fixed = nbytes(q) + lanes * heads * rank * 2
+    rec = k13_case(
+        torch, k13, f"decode {lanes} lanes ({live} rows, {distinct} "
+        f"distinct)",
+        lambda: k13.mla_decode(q, pool, tables, seq_lens, rank, scale),
+        lambda: k13.mla_decode_ref(q, pool, tables, seq_lens, rank, scale),
+        k13_rounding(torch, k13, q, pool, tables, ok, scale),
+        2.0 * heads * (width + rank) * live,
+        live * width * 2 + fixed + 4.0 * live / bs, flush, card)
+    chunk, splits = k13.decode_plan(lanes, maxb, bs)
+    rec.update(lanes=lanes, rows=live, distinct_rows=distinct, chunk=chunk,
+               splits=splits, distinct_bound_ms=(
+                   distinct * width * 2 + fixed + 4.0 * distinct / bs)
+               / HBM_BYTES_PER_S * 1e3)
+    recs = {"decode": rec, "prefill": []}
+    del ok, q
+    cached = 5900
+    for t in (128, 512, 32):
+        q = torch.randn(4, t, heads, width, generator=g, device=dev).to(bf16)
+        tab = torch.randperm(nb, generator=rng)[:4 * maxb].view(4, maxb).to(
+            dev, torch.int32)
+        pos = cached + torch.arange(t, device=dev)[None].expand(4, t)
+        pos = pos.contiguous()
+        ctx = torch.full((4,), cached + t, device=dev)
+        true_len = torch.full((4,), t, device=dev)
+        j = torch.arange(maxb * bs, device=dev)
+        ok = (j[None, None] <= pos[..., None])[:, :, None].expand(
+            4, t, heads, -1).reshape(4, t * heads, -1)
+        pairs = heads * int((pos + 1).sum())   # pos holds the 4 rows
+        rows = 4 * (cached + t)
+        r = k13_case(
+            torch, k13, f"prefill 4 x {t} over {cached} cached",
+            lambda: k13.mla_prefill(q, pool, tab, pos, ctx, true_len, rank,
+                                    scale),
+            lambda: k13.mla_prefill_ref(q, pool, tab, pos, ctx, true_len,
+                                        rank, scale),
+            k13_rounding(torch, k13, q.view(4, t * heads, width), pool, tab,
+                         ok, scale).view(4, t, heads, rank),
+            2.0 * (width + rank) * pairs,
+            rows * width * 2 + nbytes(q) + 4 * t * heads * rank * 2
+            + 4.0 * rows / bs, flush, card)
+        r.update(tokens=t, cached=cached, pairs=pairs)
+        recs["prefill"].append(r)
+        del q, ok
+    del pool
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_moonlight_serving(torch, np, tt, kernels, card):
+    """Moonlight-16B-A3B at its published widths (``DeepseekV3Config()``,
+    random bf16 weights from a seeded generator) through the engine with
+    the radix cache and both captured graphs: 4 documents of 1,000-1,500
+    tokens asked once, then 44 more questions of 20-80 tokens about them
+    (prefix hits), on 32 lanes, so that lanes are refilled, 32 new tokens
+    each. The kernels' launch counts are zeroed just before and read just
+    after; every prefill call must replay its graph, the latent-row
+    counters must count each decode step's rows exactly (a request of P
+    prompt tokens reads P + k rows at its k-th step) and fewer distinct
+    ones (lanes share documents), and the time the tick spends counting
+    them (``_count_latent_rows``) is taken beside the tick's host time."""
+    dev = torch.device("cuda")
+    cfg = tt.DeepseekV3Config()
+    t0 = time.perf_counter()
+    model = tt.DeepseekV3ForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    lanes, new, per_seq = 32, 32, 104
+    eng = tt.ContinuousBatchEngine(
+        model, num_blocks=lanes * per_seq + 400, block_size=16,
+        max_batch=lanes, max_blocks_per_seq=per_seq, max_new_tokens=new,
+        eos_token_id=-1, decode_horizon=8, prefill_group=4, device=dev)
+    t1 = time.perf_counter()
+    eng.horizon_graph()
+    eng.prefill_graphs()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t1
+    m0 = eng.metrics()
+    phase(f"engine ready (Moonlight-16B-A3B bf16): {n_params} params, "
+          f"weights {m0['weight_bytes']} bytes, latent pool "
+          f"{m0['pool_bytes']} bytes, decode step and prefill buckets "
+          f"captured in {capture_s:.2f} s ({time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(24)
+    vocab = cfg.vocab_size
+    docs = [rng.integers(0, vocab, rng.integers(1000, 1501)).tolist()
+            for _ in range(4)]
+    wave1 = [d + rng.integers(0, vocab, rng.integers(20, 81)).tolist()
+             for d in docs]
+    wave2 = [docs[i % 4] + rng.integers(0, vocab, rng.integers(
+        20, 81)).tolist() for i in range(44)]
+    counting = [0]
+    count = eng._count_latent_rows
+
+    def timed(grants, n):
+        t = time.perf_counter_ns()
+        count(grants, n)
+        counting[0] += time.perf_counter_ns() - t
+    eng._count_latent_rows = timed
+    c0 = dict(eng.counters)
+    zero_launches(kernels)
+    outs, wall = serve_waves(torch, eng, (wave1, wave2))
+    launches = kernel_launches(kernels)
+    c = {key: eng.counters[key] - c0[key] for key in c0}
+    prompts = wave1 + wave2
+    check(len(outs) == 48, f"{len(outs)} of 48 requests returned")
+    check(all(len(t) == new for t in outs.values()),
+          f"a request != {new} tokens")
+    check(all(0 <= x < vocab for t in outs.values() for x in t),
+          "token outside the vocab")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel never ran on the main path: {launches}")
+    check(c["prefill_graph_calls"] == c["prefill_calls"] > 0,
+          f"a prefill call ran eagerly: {c['prefill_graph_calls']} of "
+          f"{c['prefill_calls']} replayed")
+    check(c["cached_prompt_tokens"] > 0, "no question hit a cached document")
+    want = sum((new - 1) * len(p) + (new - 1) * new // 2 for p in prompts)
+    check(c["mla_rows_decode"] == want,
+          f"decode latent rows {c['mla_rows_decode']}, not {want}")
+    check(0 < c["mla_distinct_rows_decode"] < c["mla_rows_decode"],
+          f"distinct decode rows {c['mla_distinct_rows_decode']}")
+    check(c["mla_pairs_prefill"] > 0 and c["mla_rows_prefill"] > 0,
+          "prefill latent counters")
+    check(eng.kv.shared_rows == 0, "a finished lane still holds its blocks")
+    tokens = sum(len(t) for t in outs.values())
+    ticks = c["decode_ticks"]
+    res = {"launches": launches, "tok_s": tokens / wall,
+           "capture_s": capture_s, "n_params": n_params,
+           "lanes_per_row": c["mla_rows_decode"]
+           / c["mla_distinct_rows_decode"],
+           "tick_host_ms": c["tick_host_ns"] / ticks / 1e6,
+           "count_rows_ms": counting[0] / ticks / 1e6,
+           **{key: c[key] for key in (
+               "prefill_calls", "decode_ticks", "chained_ticks",
+               "cached_prompt_tokens", "mla_rows_decode",
+               "mla_distinct_rows_decode", "mla_pairs_prefill",
+               "mla_rows_prefill", "moe_rows_decode")}}
+    phase(f"serving Moonlight-16B-A3B bf16 (pipelined): {tokens} tokens in "
+          f"{wall:.3f} s = {res['tok_s']:.1f} tok/s, prefill calls "
+          f"{c['prefill_calls']} (all graph replays), cached prompt tokens "
+          f"{c['cached_prompt_tokens']}, decode ticks {ticks} (chained "
+          f"{c['chained_ticks']}), latent rows decode "
+          f"{c['mla_rows_decode']} ({res['lanes_per_row']:.2f} lanes a "
+          f"row), tick host {res['tick_host_ms']:.4f} ms of which counting "
+          f"latent rows {res['count_rows_ms']:.4f} ms; launches {launches} "
+          f"[{card}]")
     del eng, model
     torch.cuda.empty_cache()
     return res
@@ -2504,7 +2793,7 @@ def main():
     import numpy as np
     import torch
 
-    phase("1/20 device and set-up")
+    phase("1/21 device and set-up")
     check(torch.cuda.is_available(), "no CUDA device: this script runs the "
           "port on an NVIDIA card and does not fall back to the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2537,6 +2826,7 @@ def main():
     from vyomai_tpu_torch.layers import moe
     from vyomai_tpu_torch.ops import grouped_matmul as gm
     from vyomai_tpu_torch.ops.rms_norm import rms_norm
+    from vyomai_tpu_torch.ops import mla_attention as mla
     t0 = time.perf_counter()
     _build.library()
     phase(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s "
@@ -2549,6 +2839,14 @@ def main():
           f"a bf16 tensor-core kernel without tensor-core code: {tc}")
     check(all(stack == 0 for _, _, stack in tc.values()),
           f"a bf16 tensor-core kernel spills: {tc}")
+    k13_res = k13_kernels(_build.path)
+    phase("K13 (HMMA instructions, registers, shared memory bytes, stack "
+          f"bytes): {k13_res}")
+    check(sorted(k13_res) == sorted(K13_KERNELS)
+          and k13_res["k13_decode_split_kernel"][0] > 0
+          and k13_res["k13_prefill_kernel"][0] > 0
+          and all(v[3] == 0 for v in k13_res.values()),
+          f"K13 without its tensor-core kernels, or spilling: {k13_res}")
     k4_res = k4_kernels(_build.path)
     phase("K4 split-KV pair (registers, shared memory bytes, stack bytes) "
           f"<q type, D, pool, group rows> / <q type, D>: {k4_res}")
@@ -2559,44 +2857,44 @@ def main():
           f"K4's kernels are not the split-KV pair: {sorted(k4_res)}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    phase("2/20 K4 paged decode vs plain")
+    phase("2/21 K4 paged decode vs plain")
     k4 = phase_decode(torch, pdm, flush, card)
-    phase("3/20 K1 flash forward vs plain")
+    phase("3/21 K1 flash forward vs plain")
     k1 = phase_flash(torch, flash_attention_fwd, flash_attention_fwd_ref,
                      flush, card)
     k1_gen = phase_flash_generation(torch, fa, masks, attn, flush, card)
-    phase("4/20 K2/K3 flash backward vs plain")
+    phase("4/21 K2/K3 flash backward vs plain")
     k23 = phase_flash_bwd(torch, fa, flush, card)
     del flush
-    phase("5/20 end-to-end serving")
+    phase("5/21 end-to-end serving")
     served = phase_serving(torch, np, tt, pm,
                            (paged_decode, flash_attention_fwd, rms_norm),
                            card, sync_rerun=True)
-    phase("6/20 serving numerics")
+    phase("6/21 serving numerics")
     phase_numerics(torch, np, tt, pm, kernels=(paged_decode,
                                                 flash_attention_fwd))
     phase_graph_numerics(torch, np, tt, pm)
-    phase("7/20 end-to-end training")
+    phase("7/21 end-to-end training")
     trained = phase_training(torch, bench, bench.KERNELS, card)
-    phase("8/20 training numerics")
+    phase("8/21 training numerics")
     phase_train_numerics(torch, np, tt, bench)
-    phase("9/20 K5/K6/K7 short attention vs plain")
+    phase("9/21 K5/K6/K7 short attention vs plain")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     k567 = phase_short(torch, sa, fa, flush, card)
     del flush
-    phase("10/20 end-to-end ViT-base")
+    phase("10/21 end-to-end ViT-base")
     vit = phase_vit(torch, eb, eb.KERNELS, card)
-    phase("11/20 end-to-end RoBERTa-base MLM")
+    phase("11/21 end-to-end RoBERTa-base MLM")
     mlm = phase_mlm(torch, eb, eb.KERNELS, card)
-    phase("12/20 encoder numerics")
+    phase("12/21 encoder numerics")
     phase_encoder_numerics(torch, np, eb, eb.KERNELS)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    phase("13/20 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
+    phase("13/21 K8/K9/K10 quantized matmuls vs plain, and the K10 path")
     qmm, k10_path = phase_quant_matmul(torch, qm, qb, flush, card)
-    phase("14/20 K4 int8/int4 pools vs plain")
+    phase("14/21 K4 int8/int4 pools vs plain")
     k4q = phase_quant_decode(torch, pdm, pa, flush, card)
     del flush
-    phase("15/20 end-to-end quantized serving")
+    phase("15/21 end-to-end quantized serving")
     q8 = phase_serving(
         torch, np, tt, pm, (flash_attention_fwd, pdm.paged_decode_int8,
                             qm.int8_matmul, rms_norm), card,
@@ -2614,7 +2912,7 @@ def main():
         if bf_ms and ms:
             phase(f"graph tick device ms per step {label} {ms:.4f} vs bf16 "
                   f"{bf_ms:.4f} (ratio {ms / bf_ms:.4f}) [{card}]")
-    phase("16/20 quantized numerics")
+    phase("16/21 quantized numerics")
     n8 = phase_numerics(torch, np, tt, pm, "fp32 int8 weights + int8 pool",
                         quant=dict(bits=8), pool_dtype=torch.int8,
                         kernels=(qm.int8_matmul, pdm.paged_decode_int8))
@@ -2635,13 +2933,13 @@ def main():
                    quant=dict(bits=8, act_bits=8), tol=0.1,
                    kernels=(qm.int8_matmul, paged_decode))
     phase_w8a8_linears(torch, np, tt, qm, pm)
-    phase("17/20 end-to-end static-cache generation")
+    phase("17/21 end-to-end static-cache generation")
     gen = phase_generation(torch, np, tt, fa, qm, card)
-    phase("18/20 generation numerics")
+    phase("18/21 generation numerics")
     phase_generation_numerics(torch, np, tt, fa, attn)
     gen_k1 = sum(r["launches"]["flash_attention_fwd"] for r in gen.values()
                  ) + gen["bf16"]["generate_launches"]["flash_attention_fwd"]
-    phase("19/20 LFM2-8B-A1B: K11 vs plain, and end-to-end serving")
+    phase("19/21 LFM2-8B-A1B: K11 vs plain, and end-to-end serving")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     k11 = phase_k11(torch, gm, moe, flush, card)
     del flush
@@ -2649,10 +2947,16 @@ def main():
                                               flash_attention_fwd,
                                               gm.grouped_swiglu, rms_norm),
                               card)
-    phase("20/20 K12 RMSNorm vs plain at the served norm sites")
+    phase("20/21 K12 RMSNorm vs plain at the served norm sites")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     k12 = phase_k12(torch, flush, card)
     del flush
+    phase("21/21 Moonlight-16B-A3B: K13 vs plain, and end-to-end serving")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    k13 = phase_k13(torch, mla, flush, card)
+    del flush
+    moon = phase_moonlight_serving(torch, np, tt, (
+        mla.mla_decode, mla.mla_prefill, gm.grouped_swiglu, rms_norm), card)
 
     record = {"kernels": [
         {"name": "paged_decode[split+combine]", "route": "cuda",
@@ -2735,6 +3039,13 @@ def main():
          "replaces": "none (XLA fuses the JAX package's norms)",
          "launches": sum(run["launches"]["rms_norm"]
                          for run in (served, q8, lfm2)), **k12},
+        {"name": "mla_attention", "route": "cuda",
+         "kernels": list(K13_KERNELS),
+         "source": "vyomai_tpu_torch/csrc/mla_attention.cu",
+         "replaces": "none (the JAX package has no MLA)",
+         "launches": {k: moon["launches"][k] for k in ("mla_decode",
+                                                       "mla_prefill")},
+         "resources": k13_res, **k13["decode"], "prefill": k13["prefill"]},
     ]}
     # the decode tick per step, eager against graph, and phase 5's
     # throughput pipelined against synchronous
@@ -2765,6 +3076,10 @@ def main():
     record["serving_lfm2"] = {k: v for k, v in lfm2.items()
                               if k != "launches"}
     record["serving_lfm2"]["card"] = card
+    # Moonlight-16B-A3B through the engine (phase 21)
+    record["serving_moonlight"] = {k: v for k, v in moon.items()
+                                   if k != "launches"}
+    record["serving_moonlight"]["card"] = card
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

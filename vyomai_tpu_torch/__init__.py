@@ -7,8 +7,8 @@ never imports jax. Entry points build on the CUDA card unless the caller
 passes ``device="cpu"`` (or another device).
 """
 
-from .config import (EncoderConfig, Lfm2MoeConfig, QwenConfig,  # noqa: F401
-                     VisionConfig)
+from .config import (DeepseekV3Config, EncoderConfig,  # noqa: F401
+                     Lfm2MoeConfig, QwenConfig, VisionConfig)
 from .generation import (  # noqa: F401
     generate, generate_hf, generate_multimodel, generate_seq2seq,
     generate_until, GreedyProcessor, KeywordsStoppingCriteria,
@@ -17,6 +17,7 @@ from .generation import (  # noqa: F401
 from .layers.kv_cache import (  # noqa: F401
     DynamicCache, DynamicCacheOne, StaticCache, StaticCacheOne, init_cache)
 from .models.decoder import DecoderModel  # noqa: F401
+from .models.deepseek_v3 import DeepseekV3ForCausalLM  # noqa: F401
 from .models.encoder import EncoderForMaskedLM, EncoderModel  # noqa: F401
 from .models.lfm2 import Lfm2MoeForCausalLM  # noqa: F401
 from .models.qwen import ModelForCausalLM  # noqa: F401

@@ -5,9 +5,10 @@ fields and defaults as
 their counterparts in ``vyomai_tpu.config`` (``QwenConfig``: Qwen3-0.6B's
 published ``config.json``), so one config value describes the model in
 both packages. Qwen features the port does not run yet raise
-``NotImplementedError`` at construction. ``Lfm2MoeConfig`` is the port's
-own (the JAX package has no such model): LFM2-8B-A1B's published
-``config.json`` under its own key names.
+``NotImplementedError`` at construction. ``Lfm2MoeConfig`` and
+``DeepseekV3Config`` are the port's own (the JAX package has no such
+models): LFM2-8B-A1B's and Moonlight-16B-A3B's published ``config.json``
+under their own key names.
 """
 
 from dataclasses import dataclass, replace
@@ -182,3 +183,99 @@ class Lfm2MoeConfig:
 
     qk_norm = True
     rope_scaling = None
+
+
+@dataclass(frozen=True)
+class DeepseekV3Config:
+    """DeepSeek-V3-block causal-LM config under the published
+    ``config.json`` keys (``model_type`` ``deepseek_v3``; defaults:
+    Moonlight-16B-A3B's). Multi-head latent attention (MLA): ``q_proj``
+    gives each of the ``num_attention_heads`` heads ``qk_nope_head_dim +
+    qk_rope_head_dim`` query dims; ``kv_a_proj_with_mqa`` gives one latent
+    row of ``kv_lora_rank`` (through ``kv_a_layernorm``) and one rotary key
+    of ``qk_rope_head_dim`` that every head shares; ``kv_b_proj`` maps the
+    latent to each head's ``qk_nope_head_dim`` key and ``v_head_dim``
+    value. The first ``first_k_dense_replace`` layers have a dense SwiGLU
+    of ``intermediate_size``; the others ``n_routed_experts`` experts of
+    ``moe_intermediate_size``, ``num_experts_per_tok`` chosen by the
+    sigmoid router (``noaux_tc``: the top-k of the sigmoid scores plus a
+    correction bias, weighted by the scores over their sum times
+    ``routed_scaling_factor``), beside one shared SwiGLU of
+    ``n_shared_experts x moe_intermediate_size`` that every token takes.
+    The head is untied.
+
+    Not ported, and refused here: ``q_lora_rank`` (a low-rank query),
+    ``rope_scaling`` (YaRN), ``n_group`` or ``topk_group`` above 1 (group
+    routing), another ``scoring_func`` or ``topk_method``,
+    ``attention_bias``, ``moe_layer_freq`` other than 1, another
+    ``hidden_act``. ``num_key_value_heads``, ``ep_size``, ``seq_aux`` and
+    ``num_nextn_predict_layers`` are kept as published and read by
+    nothing (MLA has no K/V heads; the rest concern training and
+    speculation)."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    routed_scaling_factor: float = 2.446
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    topk_method: str = "noaux_tc"
+    scoring_func: str = "sigmoid"
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    max_position_embeddings: int = 8192
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 50000.0
+    rope_scaling: Optional[dict] = None
+    attention_bias: bool = False
+    hidden_act: str = "silu"
+    tie_word_embeddings: bool = False
+    ep_size: int = 1
+    seq_aux: bool = True
+    num_nextn_predict_layers: int = 0
+    bos_token_id: int = 163584
+    eos_token_id: Union[int, Tuple[int, ...]] = 163585
+
+    # the published code builds kv_a_layernorm with its RMSNorm's default
+    # epsilon, not rms_norm_eps
+    kv_a_layernorm_eps = 1e-6
+
+    def __post_init__(self):
+        unported = {
+            "q_lora_rank": self.q_lora_rank is not None,
+            "rope_scaling": self.rope_scaling is not None,
+            "n_group": self.n_group != 1 or self.topk_group != 1,
+            "scoring_func": self.scoring_func != "sigmoid",
+            "topk_method": self.topk_method != "noaux_tc",
+            "attention_bias": self.attention_bias,
+            "moe_layer_freq": self.moe_layer_freq != 1,
+            "hidden_act": self.hidden_act != "silu",
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"DeepseekV3Config options not ported to PyTorch yet: {bad}")
+
+    @property
+    def qk_head_dim(self) -> int:
+        """A head's query and key dims, the ones the softmax scale reads."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """The width of one cached token a layer: the latent and the rotary
+        key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim

@@ -8,8 +8,13 @@ Two routers:
   ``k`` of ``p``, their weights renormalised to sum to 1;
 - ``"sigmoid"``, LFM2-MoE's: ``s = sigmoid(x Wᵀ)``, the top ``k`` of ``s +
   expert_bias`` (the bias steers the choice only), weighted by their ``s``
-  over ``Σ s + 1e-6`` (``norm_topk_prob``) times
-  ``routed_scaling_factor``.
+  over ``Σ s + norm_eps`` (``norm_topk_prob``; ``norm_eps`` 1e-6, LFM2's)
+  times ``routed_scaling_factor``. DeepSeek-V3's ``noaux_tc`` router with
+  one group is this router (its ``e_score_correction_bias`` the
+  ``expert_bias``, ``norm_eps`` 1e-20).
+
+A layer may also hold ``shared_experts``, one SwiGLU that every token
+passes through (DeepSeek-V3's), added to the experts' sum.
 
 Routing runs in fp32. The (token, choice) rows are grouped by expert on
 the device with no read-back (a rank within each expert from a cumulative
@@ -19,12 +24,14 @@ dead decode lanes) go to no expert and cost K11 nothing. The routing
 weights are applied in the combine, which sums each token's ``k`` rows in
 fp32. The module tree holds ``gate`` (the router, ``[E, H]``), ``w1``,
 ``w3 [E, I, H]`` (gate and up), ``w2 [E, H, I]`` (down) and, for the
-sigmoid router with ``use_expert_bias``, ``expert_bias [E]``; JAX's
+sigmoid router with ``use_expert_bias``, ``expert_bias [E]``, and with
+``shared_inter`` the ``shared_experts.{gate,up,down}_proj``; JAX's
 ``router.kernel``, ``w_gate``, ``w_in`` and ``w_out`` are their
-transposes. ``quant.quantize_model`` quantizes the router (an
-``nn.Linear``) and leaves the banks in their dtype.
+transposes. ``quant.quantize_model`` quantizes the router and the shared
+expert (each an ``nn.Linear``) and leaves the banks in their dtype.
 """
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -32,7 +39,7 @@ from torch import nn
 
 from ..core import nn as cnn
 from ..ops.grouped_matmul import grouped_swiglu
-from .modern import _linear
+from .modern import SwiGLU, _linear, swiglu_apply
 
 ROUTERS = ("softmax", "sigmoid")
 
@@ -41,14 +48,15 @@ class MoE(nn.Module):
     def __init__(self, hidden: int, inter: int, num_experts: int,
                  top_k: int, *, router: str = "softmax",
                  expert_bias: bool = False, norm_topk_prob: bool = True,
-                 routed_scaling_factor: float = 1.0, device=None,
-                 dtype=torch.float32):
+                 routed_scaling_factor: float = 1.0, norm_eps: float = 1e-6,
+                 shared_inter: int = 0, device=None, dtype=torch.float32):
         super().__init__()
         if router not in ROUTERS:
             raise ValueError(f"router {router!r}: one of {ROUTERS}")
         self.router, self.top_k = router, min(top_k, num_experts)
         self.norm_topk_prob = norm_topk_prob
         self.routed_scaling_factor = float(routed_scaling_factor)
+        self.norm_eps = float(norm_eps)
         self.gate = _linear(hidden, num_experts, device, dtype)
         kw = dict(device=device, dtype=dtype)
         self.w1 = nn.Parameter(torch.empty(num_experts, inter, hidden, **kw))
@@ -56,6 +64,9 @@ class MoE(nn.Module):
         self.w2 = nn.Parameter(torch.empty(num_experts, hidden, inter, **kw))
         self.expert_bias = (nn.Parameter(torch.zeros(num_experts, **kw))
                             if router == "sigmoid" and expert_bias else None)
+        self.shared_experts = (SwiGLU(SimpleNamespace(
+            hidden_size=hidden, intermediate_size=shared_inter), **kw)
+            if shared_inter else None)
 
     @property
     def num_experts(self) -> int:
@@ -82,7 +93,7 @@ def route(moe: MoE, logits: torch.Tensor):
     sel = torch.topk(score, k, dim=-1).indices
     w = s.gather(-1, sel)
     if moe.norm_topk_prob:
-        w = w / (w.sum(-1, keepdim=True) + 1e-6)
+        w = w / (w.sum(-1, keepdim=True) + moe.norm_eps)
     return w * moe.routed_scaling_factor, sel
 
 
@@ -118,9 +129,11 @@ def dispatch(sel: torch.Tensor, num_experts: int,
 def moe_apply(moe: MoE, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
               counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The layer over ``x [..., H]``; ``valid [...]`` bool marks the tokens
-    to route (None: all), the others give 0. ``counts`` (int64 ``[2]``,
-    on x's device), when given, gains in place the rows K11 ran and the
-    experts that got at least one."""
+    to route (None: all), the others give 0 from the experts (the shared
+    expert, where there is one, runs on every token, its sum with the
+    routed one rounded once). ``counts`` (int64 ``[2]``, on x's device),
+    when given, gains in place the rows K11 ran and the experts that got
+    at least one."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     t, e = x2.shape[0], moe.num_experts
@@ -135,4 +148,6 @@ def moe_apply(moe: MoE, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
     if counts is not None:
         counts[0] += offsets[e]
         counts[1] += (offsets[1:] > offsets[:-1]).sum()
+    if moe.shared_experts is not None:
+        out = out + swiglu_apply(moe.shared_experts, x2)
     return out.to(x.dtype).reshape(shape)

@@ -58,6 +58,13 @@ _SIGNATURES = {
     + [_I, _P],
     # x, residual, weight, sum, out, rows, D, eps, is_bf16, stream
     "rms_norm_launch": [_P] * 5 + [_I] * 2 + [ctypes.c_float, _I, _P],
+    # q, pool, tables, lens, out, workspace (acc, m/l), B, MAXB, BS, scale
+    # (base 2), plan (chunk, splits), stream
+    "mla_decode_launch": [_P] * 7 + [_I] * 3 + [ctypes.c_float] + [_I] * 2
+    + [_P],
+    # q, pool, tables, positions, ctx_len, true_len, out, N, T, MAXB, BS,
+    # scale (base 2), stream
+    "mla_prefill_launch": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
 _LIB = None

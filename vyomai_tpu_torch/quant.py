@@ -146,9 +146,10 @@ def quantize_model(model: nn.Module, *, bits: int = 8,
     """Quantize ``model``'s linears (and, with ``embed``, its token table)
     IN PLACE, by the JAX ``quantize_params`` rules (module docstring); MoE
     expert banks keep their dtype. Returns ``model``.
-    ``ModelForCausalLM`` (dense and through ``serving.paged_model``) and
-    ``Lfm2MoeForCausalLM`` run the result; the other models' layers read
-    float weights directly."""
+    ``ModelForCausalLM`` (dense and through ``serving.paged_model``),
+    ``Lfm2MoeForCausalLM`` and ``DeepseekV3ForCausalLM`` (its absorbed MLA
+    reads ``kv_b_proj`` dequantized) run the result; the other models'
+    layers read float weights directly."""
     if bits not in (8, 4):
         raise ValueError(f"bits={bits}: 8 or 4")
     if act_bits not in (0, 8):

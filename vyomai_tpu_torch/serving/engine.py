@@ -37,6 +37,11 @@ around ``engine.tick.launch``, ``engine.tick.harvest``, and
 counts behind the per-layer metrics are in ``counters`` always, on
 ``time.perf_counter_ns``'s clock.
 
+A model with multi-head latent attention (``models.deepseek_v3``) keeps
+one latent row a token a layer (``paged_model.init_pool``); the engine
+counts the rows its attention reads (``counters``), and the block manager
+keeps how many rows decode lanes share through the radix cache.
+
 Each admitted sequence holds one decode lane, from admission until it
 finishes, is aborted or is preempted: its row in every tick and, for a
 model with conv layers (``models.lfm2``), its row of the conv state
@@ -88,8 +93,23 @@ def _reject(unsupported: dict, ported: tuple, where: str):
 def check_card_config(cfg):
     """Raise ``NotImplementedError`` for a config whose attention the
     card's kernels do not take yet: a GQA group above 8 (K4) or a head_dim
-    other than 64 and 128 (K1 and K4). The plain path on the CPU serves
-    both, so the engine checks only where it runs on a CUDA device."""
+    other than 64 and 128 (K1 and K4). A model with multi-head latent
+    attention (``kv_lora_rank``) attends through K13 instead, where its
+    heads all share one latent row a token, a "group" of every head: K13
+    takes 16 heads over a latent of 512 and 64 rotary dims
+    (Moonlight-16B-A3B's), the widths it was built and measured at. The
+    plain path on the CPU serves all of these, so the engine checks only
+    where it runs on a CUDA device."""
+    if paged_model.is_mla(cfg):
+        got = (cfg.num_attention_heads, cfg.kv_lora_rank,
+               cfg.qk_rope_head_dim)
+        if got != (16, 512, 64):
+            raise NotImplementedError(
+                f"MLA with {got[0]} heads, latent {got[1]}, rotary "
+                f"{got[2]}: K13 (MLA over the latent pool) takes 16 heads "
+                "sharing a 512 + 64 latent row (a group of 16) on the "
+                "card; other widths are not ported yet")
+        return
     group = cfg.num_attention_heads // cfg.num_key_value_heads
     if group > 8:
         raise NotImplementedError(
@@ -123,9 +143,11 @@ class ContinuousBatchEngine:
                  radix_cache: bool = True,
                  max_prefill_per_tick: Optional[int] = 4,
                  pipeline_decode: bool = True, device=None, **unsupported):
-        """``model``: a ``models.qwen.ModelForCausalLM`` or
-        ``models.lfm2.Lfm2MoeForCausalLM`` on ``device`` (default: the
-        model's device), float or quantized (``quant.quantize_model``).
+        """``model``: a ``models.qwen.ModelForCausalLM``,
+        ``models.lfm2.Lfm2MoeForCausalLM`` or
+        ``models.deepseek_v3.DeepseekV3ForCausalLM`` on ``device``
+        (default: the model's device), float or quantized
+        (``quant.quantize_model``).
         ``dtype`` is the pool's storage dtype: a float dtype,
         ``torch.int8`` or ``"int4"`` (quantized pools,
         ``paged_model.init_pool``). ``radix_cache=False`` disables prefix
@@ -166,6 +188,7 @@ class ContinuousBatchEngine:
         self.generator.manual_seed(seed)
         self.radix_cache = bool(radix_cache)
         self.pipeline_decode = bool(pipeline_decode)
+        self._mla = paged_model.is_mla(self.cfg)
         self._sampling = paged_model.sampling_tensors(
             self.device, self.temperature, self.top_p, self.min_p)
         # a chained tick must never write KV into blocks the host frees at
@@ -208,6 +231,8 @@ class ContinuousBatchEngine:
             "moe_rows_decode": 0, "moe_rows_prefill": 0,
             "moe_expert_visits_decode": 0, "moe_expert_visits_prefill": 0,
             "norm_sites": 0, "norm_sites_fused": 0,
+            "mla_rows_decode": 0, "mla_distinct_rows_decode": 0,
+            "mla_pairs_prefill": 0, "mla_rows_prefill": 0,
         }
         """Running integer counts, read as differences between two copies
         (``dict(engine.counters)``); times are ``time.perf_counter_ns``
@@ -264,6 +289,20 @@ class ContinuousBatchEngine:
           one on the card, none on the CPU), added as each tick or prefill
           call is launched: a replay adds what its graph's capture counted
           (``fused_norm_share.tok_s``).
+        - ``mla_rows_decode``, ``mla_distinct_rows_decode``: for a model
+          with latent attention, the latent rows (one a token of context)
+          that the live lanes of each decode step read, summed over steps,
+          and the distinct rows among them: lanes that hold the same
+          cached blocks read those rows once (the block manager's
+          ``shared_rows``); ``mla_pairs_prefill``: the live (query, key)
+          pairs of prefill calls, each real suffix token with the keys it
+          attends (its position + 1); ``mla_rows_prefill``: the distinct
+          latent rows each prefill call reads, a row shared by two of its
+          rows once (``k13_roofline.decode.tok_s``,
+          ``k13_roofline.prefill.tok_s``, ``latent_lanes_per_row.tok_s``).
+          Per step or call, not per layer; added as each tick's and prefill
+          call's inputs are staged, from the grants (a lane lives its whole
+          grant); 0 for other models, whose ticks count nothing here.
         """
         # submit -> first token, without keeping one number per request
         self._first_token_ns = 0
@@ -335,6 +374,7 @@ class ContinuousBatchEngine:
         if state is None:
             return False
         state.finished = True
+        self._unhold(state)
         self.kv.free(state, cache_prefix=not state.no_radix)
         self._release_lane(state)
         return True
@@ -410,6 +450,7 @@ class ContinuousBatchEngine:
         waiting room (its generated tokens are re-prefilled)."""
         victim = max(self.active.values(), key=lambda s: s.seq_id)
         self.counters["preemptions"] += 1
+        self._unhold(victim)
         self.kv.free(victim, cache_prefix=False)
         self.active.pop(victim.seq_id, None)
         self._release_lane(victim)
@@ -506,7 +547,23 @@ class ContinuousBatchEngine:
         c["prefill_slots"] += self.prefill_group * t_pad
         c["prefill_attn_pairs"] += pairs
         c["prefill_ctx_tokens"] += ctx
+        if self._mla:
+            c["mla_pairs_prefill"] += pairs
+            c["mla_rows_prefill"] += self._call_rows(states, suffixes)
         return graph, suffixes
+
+    def _call_rows(self, states, suffixes) -> int:
+        """The distinct pool rows a prefill call reads: each row's context
+        up to its last real token, through its block table."""
+        bs, used = self.block_size, {}
+        for state, suffix in zip(states, suffixes):
+            full, part = divmod(state.num_cached_tokens + len(suffix), bs)
+            for b in state.block_table[:full]:
+                used[b] = bs
+            if part:
+                b = state.block_table[full]
+                used[b] = max(used.get(b, 0), part)
+        return sum(used.values())
 
     def _append_token(self, state: SequenceState, tok: int):
         state.tokens.append(tok)
@@ -526,11 +583,26 @@ class ContinuousBatchEngine:
             self.max_blocks_per_seq * self.block_size
         if hit_eos or new >= state.max_new or out_of_blocks:
             state.finished = True
+            self._unhold(state)
             self.kv.free(state, cache_prefix=not state.no_radix)
             self._release_lane(state)
             self.active.pop(state.seq_id, None)
             self.counters["requests_completed"] += 1
             self.finished[state.seq_id] = state
+
+    def _hold(self, state: SequenceState):
+        """A decode lane starts reading its cached blocks (an MLA model's
+        count, ``counters``)."""
+        state.held = np.fromiter((node.block for node in state.cached_nodes),
+                                 dtype=np.int64, count=len(state.cached_nodes))
+        self.kv.hold(state.held)
+
+    def _unhold(self, state: SequenceState):
+        """A decode lane stops reading its cached blocks; before
+        ``kv.free`` drops them."""
+        if state.held is not None:
+            self.kv.unhold(state.held)
+            state.held = None
 
     def _release_lane(self, state: SequenceState):
         if state.lane is not None:
@@ -636,10 +708,43 @@ class ContinuousBatchEngine:
                 x["budget"][i] = h
                 x["tables"][i, :len(state.block_table)] = state.block_table
             n = min(self.decode_horizon, max(g[3] for g in grants))
+            if self._mla:
+                self._count_latent_rows(grants, n)
             norms = paged_model.norm_counts()
             tick = graph.launch(n, chain)
             self._count_norms(norms)
         return {"tick": tick, "live": [(i, s, h) for i, s, _, h in grants]}
+
+    def _count_latent_rows(self, grants, n: int):
+        """Add a tick's latent rows to ``mla_rows_decode`` and the distinct
+        ones to ``mla_distinct_rows_decode``: step ``j`` reads positions
+        ``0..pos + j`` of each lane whose grant exceeds ``j``, and the
+        cached blocks that lanes live in that step share are read once.
+        A lane holds its blocks from its first grant; one that sits a tick
+        out, or whose grant ends before the tick's last step (it finishes
+        in that tick, or the pool shrank its grant), gives them up here and
+        takes them again at its next grant, so a lane is held and given up
+        about once in its life and no table is scanned."""
+        kv = self.kv
+        rows = sum(h * (pos + 1) + h * (h - 1) // 2
+                   for _, _, pos, h in grants)
+        granted = {s.seq_id for _, s, _, _ in grants}
+        for s in self.active.values():
+            if s.seq_id not in granted:
+                self._unhold(s)
+        for _, s, _, _ in grants:
+            if s.held is None:
+                self._hold(s)
+        shared, j0 = 0, 0
+        for _, s, _, h in sorted(grants, key=lambda g: g[3]):
+            if h >= n:
+                break
+            shared += kv.shared_rows * (h - j0)
+            self._unhold(s)
+            j0 = h
+        shared += kv.shared_rows * (n - j0)
+        self.counters["mla_rows_decode"] += rows
+        self.counters["mla_distinct_rows_decode"] += rows - shared
 
     def _count_norms(self, before):
         """Add the norm sites run since ``before`` (``paged_model.

@@ -18,10 +18,17 @@ Ownership protocol:
   owned blocks into the radix tree (refcount 0 -> immediately evictable,
   reusable by future prompts), and returns the partial tail block to the
   free list.
+
+The port adds one count the JAX manager lacks: ``shared_rows``, the rows
+that decode lanes read more than once because they hold the same cached
+blocks, kept as lanes take (``hold``) and give up (``unhold``) their
+matched blocks, so that a reader never scans the block tables.
 """
 
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 
 class RadixNode:
@@ -65,6 +72,9 @@ class SequenceState:
         # construction (unique image, media_key=None) or when the interned
         # media-salt namespace is exhausted — never sharing is always sound.
         self.no_radix = False
+        # the cached blocks this decode lane holds in the manager's count
+        # of shared rows (``PagedKVManager.hold``), or None
+        self.held: Optional[np.ndarray] = None
 
     def __len__(self):
         return len(self.tokens)
@@ -93,6 +103,10 @@ class PagedKVManager:
         self.radix_hits = 0        # lookups that matched >= 1 block
         self.radix_hit_blocks = 0  # total blocks served from the cache
         self.radix_evictions = 0   # blocks reclaimed from the radix tree
+        # decode lanes holding each block, and the sum over the blocks of
+        # block_size x (holders - 1)
+        self._holders = np.zeros(num_blocks, dtype=np.int32)
+        self.shared_rows = 0
 
     def cache_stats(self) -> dict:
         """Radix-cache counters for ``engine.metrics()``."""
@@ -100,6 +114,22 @@ class PagedKVManager:
                 "radix_hits": self.radix_hits,
                 "radix_hit_blocks": self.radix_hit_blocks,
                 "radix_evictions": self.radix_evictions}
+
+    # -- decode lanes' shared blocks ------------------------------------------
+    def hold(self, blocks: np.ndarray):
+        """A decode lane takes ``blocks`` (distinct cached blocks, whole, so
+        it reads every row of each): each one another lane holds adds its
+        rows to ``shared_rows``. One vector operation a lane, not one a
+        block: a lane holds a few hundred blocks of a long document."""
+        held = self._holders[blocks]
+        self.shared_rows += self.block_size * int(np.count_nonzero(held))
+        self._holders[blocks] = held + 1
+
+    def unhold(self, blocks: np.ndarray):
+        """A decode lane gives up ``blocks`` (what it took with ``hold``)."""
+        held = self._holders[blocks] - 1
+        self.shared_rows -= self.block_size * int(np.count_nonzero(held))
+        self._holders[blocks] = held
 
     # -- capacity -----------------------------------------------------------
     def num_free(self) -> int:

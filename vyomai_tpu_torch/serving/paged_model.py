@@ -28,6 +28,23 @@ is one call of K12, ``ops.rms_norm``, with the residual add in front of it
 folded in: the steps carry each block's output (``delta``) to the next
 norm instead of adding it themselves.
 
+A model with multi-head latent attention (``config.kv_lora_rank``,
+``models.deepseek_v3``) keeps a latent pool instead,
+``[L, NB, BS, kv_lora_rank + qk_rope_head_dim]``: one row a token a layer,
+the latent ``c_kv`` and the rotated ``k_pe`` that every head shares, with
+no K/V pair and no heads (1,152 B a token a layer for Moonlight-16B-A3B,
+against 8,192 B for its 16 heads' K and V). Both steps run MLA's absorbed
+form (``layers.mla``): each head's latent query ``q_nope W_UK`` beside its
+``q_pe`` attends the rows through K13 (``ops.mla_attention``), which reads
+them from the pool through the layer-offset tables, and the heads' latent
+outputs go through ``W_UV`` into ``o_proj``. Prefill takes the absorbed
+form too: a refill's few suffix tokens attend a cached context of
+thousands of rows, which the decompressed form would first expand through
+``kv_b_proj`` (2·512·4,096 FLOPs a row and layer, more than the absorbed
+scores of a short suffix cost), and a gather of the rows into a copy is
+what K13 avoids. A span ``paged_model.mla`` encloses each layer's MLA
+attention in both steps.
+
 The steps walk the model's layers by kind. A model with ``layer_types``
 (``models.lfm2.Lfm2MoeForCausalLM``) keeps KV for its ``full_attention``
 layers only: the pool's L counts those (:func:`kv_layers`), and a layer's
@@ -46,12 +63,14 @@ from ..core import nn as cnn
 from ..core.device import resolve_device
 from ..core.masks import NEG_INF
 from ..generation.sampling import _min_p_mask, _top_p_mask
+from ..layers.mla import absorb_out, absorb_q, latent_rows, queries
 from ..layers.modern import (lm_logits, qkv_heads, rope_tables, rotate,
                              swiglu_apply)
 from ..layers.moe import MoE, moe_apply
 from ..layers.short_conv import conv_sequence, conv_step
 from ..ops.flash_attention import flash_attention_fwd
 from ..ops.grouped_matmul import grouped_swiglu
+from ..ops.mla_attention import mla_decode, mla_prefill, write_latent
 from ..ops.paged_attention import gather_kv, write_kv
 from ..ops.paged_decode import (paged_decode, paged_decode_int4,
                                 paged_decode_int8)
@@ -67,6 +86,12 @@ def kv_layers(config) -> list:
     if types is None:
         return list(range(config.num_hidden_layers))
     return [i for i, t in enumerate(types) if t == "full_attention"]
+
+
+def is_mla(config) -> bool:
+    """Whether the model attends through multi-head latent attention, over
+    a latent pool."""
+    return getattr(config, "kv_lora_rank", None) is not None
 
 
 def conv_layers(model) -> list:
@@ -117,13 +142,21 @@ def init_pool(config, num_blocks: int, block_size: int,
               dtype=torch.bfloat16, device=None):
     """Combined K/V pool ``[L, NB, 2, BS, H_kv*D]`` (k row 0, v row 1), on
     the card unless ``device`` names another; L counts the layers that
-    hold KV (:func:`kv_layers`).
+    hold KV (:func:`kv_layers`). An MLA model's is the latent pool ``[L,
+    NB, BS, kv_lora_rank + qk_rope_head_dim]`` of a float dtype.
 
     ``dtype=torch.int8`` stores rows quantized at write time with one fp32
     scale per (layer, block, k/v, slot); ``dtype="int4"`` packs two values
     per byte with one scale per (row, kv head). Both return the dict of the
     module docstring, the scales initialised to 1 as in JAX."""
     device = resolve_device(device)
+    if is_mla(config):
+        if dtype not in (torch.bfloat16, torch.float32, torch.float64):
+            raise NotImplementedError(
+                f"latent pool dtype {dtype}: a float dtype (a quantized "
+                "latent pool is not ported)")
+        return torch.zeros(config.num_hidden_layers, num_blocks, block_size,
+                           config.latent_dim, dtype=dtype, device=device)
     h_kv = config.num_key_value_heads
     shape = (len(kv_layers(config)), num_blocks, 2, block_size,
              h_kv * config.head_dim)
@@ -147,6 +180,12 @@ def pool_parts(pool):
     if isinstance(pool, dict):
         return pool["kv"], pool["scale"]
     return pool, None
+
+
+def pool_block_size(pool) -> int:
+    """Tokens a block of the pool holds (K/V or latent)."""
+    kv = pool_parts(pool)[0]
+    return kv.shape[2] if kv.dim() == 4 else kv.shape[3]
 
 
 def pool_bytes(pool) -> int:
@@ -210,6 +249,46 @@ def _conv_decode(conv, normed, st, alive) -> torch.Tensor:
         return out
 
 
+def _mla_prefill(attn, cfg, normed, cos, sin, flat_pool, pl, nb, flat_blocks,
+                 flat_offsets, block_tables, positions, ctx_len, true_len):
+    """One layer's MLA over a prefill call's rows ``normed [N, T, h]``:
+    writes each token's latent row at its slot, then its absorbed query
+    attends the row's cached context and its suffix through K13. Returns
+    the ``o_proj`` output ``[N, T, h]``."""
+    with span("paged_model.mla"):
+        n, t = normed.shape[:2]
+        nh = cfg.num_attention_heads
+        q_nope, q_pe = queries(attn, cfg, normed, (n * t,), cos.reshape(
+            n * t, 1, -1), sin.reshape(n * t, 1, -1))
+        lat = latent_rows(attn, cfg, normed, cos, sin, norm=rms_norm)
+        write_latent(flat_pool, lat.reshape(n * t, -1),
+                     _layer_tables(flat_blocks, pl, nb), flat_offsets)
+        q = torch.cat([absorb_q(attn, cfg, q_nope), q_pe], -1)
+        o = mla_prefill(q.view(n, t, nh, -1), flat_pool,
+                        _layer_tables(block_tables, pl, nb), positions,
+                        ctx_len, true_len, cfg.kv_lora_rank,
+                        cfg.qk_head_dim ** -0.5)
+        o = absorb_out(attn, cfg, o.view(n * t, nh, -1))
+        return cnn.apply_linear(attn.o_proj, o.view(n, t, -1))
+
+
+def _mla_decode(attn, cfg, normed, cos, sin, flat_pool, pl, nb, slot_blocks,
+                slot_offsets, block_tables, seq_lens):
+    """One layer's MLA over a decode step's lanes ``normed [B, h]``: writes
+    each live lane's latent row, then its absorbed query attends the lane's
+    rows through K13. Returns the ``o_proj`` output ``[B, h]``."""
+    with span("paged_model.mla"):
+        q_nope, q_pe = queries(attn, cfg, normed, (normed.shape[0],), cos,
+                               sin)
+        lat = latent_rows(attn, cfg, normed, cos, sin, norm=rms_norm)
+        write_latent(flat_pool, lat, _layer_tables(slot_blocks, pl, nb),
+                     slot_offsets)
+        q = torch.cat([absorb_q(attn, cfg, q_nope), q_pe], -1)
+        o = mla_decode(q, flat_pool, _layer_tables(block_tables, pl, nb),
+                       seq_lens, cfg.kv_lora_rank, cfg.qk_head_dim ** -0.5)
+        return cnn.apply_linear(attn.o_proj, absorb_out(attn, cfg, o))
+
+
 def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
                 block_tables, ctx_len, true_len=None, lanes=None,
                 state=None) -> torch.Tensor:
@@ -226,7 +305,7 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
     cfg = model.config
     n, t_pad = ids.shape
     flat_pool, flat_sc, nb = _flat(pool)
-    bs = flat_pool.shape[2]
+    mla = is_mla(cfg)
     nkv = cfg.num_key_value_heads
     maxb = block_tables.shape[1]
     hidden = cnn.apply_embedding(model.embed_tokens, ids)       # [N, T, Dm]
@@ -237,10 +316,13 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
         cont = positions[:, 0] > 0              # a chunk after the first
     counts = _moe_counts(state, 1)
 
-    # causal-with-offset additive mask over the gathered context
-    k_pos = torch.arange(maxb * bs, device=ids.device)[None, None, :]
-    ok = (k_pos <= positions[:, :, None]) & (k_pos < ctx_len[:, None, None])
-    bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)[:, None]
+    if not mla:     # K13 masks from the positions itself
+        # causal-with-offset additive mask over the gathered context
+        k_pos = torch.arange(maxb * flat_pool.shape[2],
+                             device=ids.device)[None, None, :]
+        ok = (k_pos <= positions[:, :, None]) & \
+            (k_pos < ctx_len[:, None, None])
+        bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)[:, None]
     cos, sin = rope_tables(model, positions, hidden.dtype)      # [N,T,1,D]
     flat_blocks = slot_blocks.reshape(-1)
     flat_offsets = slot_offsets.reshape(-1)
@@ -253,6 +335,11 @@ def _multi_core(model, pool, ids, positions, slot_blocks, slot_offsets,
                 st = state.conv[state.conv_index[layer_i]]
                 delta = _conv_prefill(layer.conv, normed, st, lanes, cont,
                                       true_len)
+            elif mla:
+                delta = _mla_prefill(layer.self_attn, cfg, normed, cos, sin,
+                                     flat_pool, kv_of[layer_i], nb,
+                                     flat_blocks, flat_offsets, block_tables,
+                                     positions, ctx_len, true_len)
             else:
                 pl = kv_of[layer_i]
                 q, k, v = qkv_heads(layer.self_attn, cfg, normed, (n, t_pad),
@@ -317,6 +404,7 @@ def decode(model, pool, tokens, positions, block_tables, seq_lens,
     flat_pool, flat_sc, nb = _flat(pool)
     nkv = cfg.num_key_value_heads
     kv_of = {li: j for j, li in enumerate(kv_layers(cfg))}
+    mla = is_mla(cfg)
     alive = None if state is None else seq_lens > 0
     counts = _moe_counts(state, 0)
     hidden = cnn.apply_embedding(model.embed_tokens, tokens)     # [B, Dm]
@@ -327,6 +415,10 @@ def decode(model, pool, tokens, positions, block_tables, seq_lens,
         if layer_i not in kv_of:
             st = state.conv[state.conv_index[layer_i]]
             delta = _conv_decode(layer.conv, normed, st, alive)
+        elif mla:
+            delta = _mla_decode(layer.self_attn, cfg, normed, cos, sin,
+                                flat_pool, kv_of[layer_i], nb, slot_blocks,
+                                slot_offsets, block_tables, seq_lens)
         else:
             pl = kv_of[layer_i]
             q, k, v = qkv_heads(layer.self_attn, cfg, normed, (b,),
@@ -437,7 +529,7 @@ def _step(model, pool, x: dict, c: _Carry, do_sample: bool, eos: int,
     output is 0. Returns the step's logits [B, V]."""
     tokens, pos, alive = x["tokens"], x["positions"], x["live"]
     tables = x["tables"]
-    bs = pool_parts(pool)[0].shape[3]
+    bs = pool_block_size(pool)
     maxb = tables.shape[1]
     blk = tables[c.lanes, (pos // bs).clamp_max(maxb - 1)]
     slot_blocks = torch.where(alive, blk, -1)
@@ -503,7 +595,8 @@ def decode_horizon(model, pool, tokens, positions, block_tables, live,
 # the kernels' wrappers that a captured decode step or prefill may call,
 # and their counters
 _COUNTED = (paged_decode, paged_decode_int8, paged_decode_int4, int8_matmul,
-            int4_matmul, flash_attention_fwd, grouped_swiglu, rms_norm)
+            int4_matmul, flash_attention_fwd, grouped_swiglu, rms_norm,
+            mla_decode, mla_prefill)
 
 
 def _launch_counts() -> dict:

@@ -15,8 +15,9 @@ per request goes into a name. The engine's (``serving/engine.py``):
 ``engine.tick.wait``; the paged model's (``serving/paged_model.py``, on
 the card recorded only while a graph is captured): ``paged_model.prefill``,
 ``paged_model.prefill.layer`` (one a layer), ``paged_model.conv`` (a conv
-layer's operator, prefill and decode) and ``paged_model.moe`` (an expert
-layer's FFN, prefill and decode).
+layer's operator, prefill and decode), ``paged_model.moe`` (an expert
+layer's FFN, prefill and decode) and ``paged_model.mla`` (a layer's
+multi-head latent attention, prefill and decode).
 """
 
 from contextlib import nullcontext
